@@ -1,0 +1,76 @@
+"""The port's CUDA kernel on the card (marker `cuda`; skips without one).
+
+Run on a machine with an NVIDIA GPU:
+    python -m pytest tests/test_torch_cuda.py -q -m cuda
+The K5 kernel (csrc/paged_attention.cu) must agree with its plain
+PyTorch version on the same inputs, fp32 rtol = atol = 1e-5, and count
+its launches; the engine must go through it on every tick.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _case(seed, dtype, q_lens, kv_lens, T, K=2, H=8, hd=64, ps=16,
+          max_pages=8):
+    rng = np.random.default_rng(seed)
+    S = len(q_lens)
+    P = 1 + S * max_pages
+    tables = rng.permutation(S * max_pages).reshape(S, max_pages) + 1
+    cu = np.concatenate([[0], np.cumsum(q_lens)])
+    kv = np.asarray(kv_lens)
+    qp = np.maximum(kv - np.asarray(q_lens), 0)
+    f = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s, dtype=np.float32)).to("cuda", dtype)
+    i = lambda a: torch.from_numpy(  # noqa: E731
+        np.asarray(a, np.int32)).to("cuda")
+    return (f(T, H, hd), f(K, P, ps, hd), f(K, P, ps, hd), i(tables), i(kv),
+            i(qp), i(cu))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_kernel_matches_plain_version(cuda, dtype, tol):
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    # Contexts of 600 and 300 keys span several key splits of the kernel.
+    args = _case(0, dtype, [1, 0, 37, 5], [600, 0, 37, 300], 48,
+                 max_pages=40)
+    before = pa.ragged_paged_attention_unified.launches
+    out = pa.ragged_paged_attention_unified(*args)
+    torch.cuda.synchronize()
+    assert pa.ragged_paged_attention_unified.launches == before + 1
+    ref = pa.ragged_paged_attention_unified_reference(*args)
+    torch.testing.assert_close(out[:43].float(), ref[:43].float(),
+                               rtol=tol, atol=tol)
+    assert (out[43:] == 0).all()
+
+
+def test_engine_ticks_launch_kernel(cuda):
+    from ray_tpu_torch.llm.sampling import SamplingParams
+    from ray_tpu_torch.llm.serving import LLMConfig, build_engine
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    config = llama.LlamaConfig.tiny(d_model=256, n_heads=4, n_kv_heads=2,
+                                    dtype=torch.float32)
+    engine = build_engine(LLMConfig(model_config=config, block_size=16,
+                                    num_kv_blocks=64, max_batch_size=4,
+                                    prefill_chunk=32, device=cuda))
+    pa.ragged_paged_attention_unified.launches = 0
+    outs = engine.generate([[1, 2, 3] * 20, [7, 8]],
+                           SamplingParams(max_tokens=5))
+    assert all(len(o.output_token_ids) == 5 for o in outs)
+    assert pa.ragged_paged_attention_unified.launches == \
+        config.n_layers * engine.ticks
