@@ -1,16 +1,25 @@
-"""Model execution for serving: the unified ragged step over a paged cache.
+"""Model execution for serving: bucketed steps over a paged cache.
 
-Port of the unified path of ray_tpu/llm/model_runner.py:
+Port of ray_tpu/llm/model_runner.py:
 
   * The KV cache is a paged pool `(layers, kv_heads, num_blocks,
     block_size, head_dim)`; block tables map each sequence's logical
     positions onto pool pages.
   * `step_mixed` runs one token-major batch (decode rows and prefill chunk
-    slices together), bucketed on total token count T by the engine: embed,
-    RoPE and the KV scatter run per token, attention is ONE launch of
-    ragged paged attention per layer (ops/paged_attention.py: the K5 kernel
-    on CUDA, the plain version on the CPU), and sampling runs on the
-    device so only token ids cross to the host.
+    slices together), bucketed on total token count T by the engine:
+    attention is ONE launch of ragged paged attention per layer (K5).
+  * The split path's entry points run a rectangular (S, Bq) batch, one
+    bucket of (batch, query tokens per sequence): `step` (fp32 logits of
+    each sequence's last real row, for host sampling), `step_sample`
+    (sampling on the device), `step_verify` (greedy ids at every row, for
+    speculative verify) and `step_sample_multi` (k decode steps chained on
+    the device). Their attention is the rectangular kernel (K6).
+  * Attention goes through ops/paged_attention.py: the CUDA kernel on a
+    CUDA tensor, the plain version on the CPU. Every head samples with
+    one sampler, `_device_sample`, so split and unified ticks draw alike.
+  * Host arrays go to the device through pinned memory without waiting
+    for it, and the split decode's sampled ids come back through
+    `HostCopy`: nothing on the decode dispatch path synchronises.
   * PyTorch runs eagerly, so a new shape costs no compile; `step_compiles`
     still counts new shape signatures (the unit a later CUDA-graph capture
     per bucket will pay for).
@@ -103,8 +112,29 @@ def gumbel_noise(seeds: torch.Tensor, counters: torch.Tensor,
     return -torch.log(-torch.log(u))
 
 
+class HostCopy:
+    """A device tensor's copy into pinned host memory, started without
+    waiting for the device (an event marks its end); `numpy()` waits on
+    that event only. A CPU tensor is its own copy."""
+
+    def __init__(self, t: torch.Tensor):
+        self._event = None
+        if t.is_cuda:
+            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._host.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(t.device))
+        else:
+            self._host = t
+
+    def numpy(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()
+
+
 class ModelRunner:
-    """Eager unified step over a paged cache, on one device."""
+    """Eager bucketed steps over a paged cache, on one device."""
 
     BATCH_BUCKETS = (1, 2, 4, 8, 16, 32)
     NEG_INF = -1e30
@@ -141,9 +171,16 @@ class ModelRunner:
         logger.info("llm step shape #%d: %s", self.step_compiles, key)
         return True
 
-    def _tensor(self, a, dtype=torch.int32) -> torch.Tensor:
-        return torch.as_tensor(np.ascontiguousarray(a)).to(
-            device=self.device, dtype=dtype)
+    def to_device(self, a, dtype=torch.int32) -> torch.Tensor:
+        """A host array (or a tensor) as `dtype` on the runner's device.
+        Host arrays travel through pinned memory with a non-blocking copy:
+        the upload never waits for queued device work."""
+        if isinstance(a, torch.Tensor):
+            return a.to(device=self.device, dtype=dtype)
+        t = torch.as_tensor(np.ascontiguousarray(a)).to(dtype)
+        if self.device.type == "cuda":
+            t = t.pin_memory().to(self.device, non_blocking=True)
+        return t
 
     # ---- the unified ragged step -----------------------------------------
 
@@ -226,28 +263,19 @@ class ModelRunner:
         cu_host = np.asarray(cu_q_lens)
         n_real = int(cu_host[-1])
         x = self._backbone_mixed(
-            self._tensor(tokens), self._tensor(q_positions),
-            self._tensor(kv_lens), self._tensor(cu_host),
-            self._tensor(block_tables), n_real)
+            self.to_device(tokens), self.to_device(q_positions),
+            self.to_device(kv_lens), self.to_device(cu_host),
+            self.to_device(block_tables), n_real)
         out_rows = np.asarray(out_rows)
         S, W = out_rows.shape
-        logits = self._logits(x[self._tensor(out_rows.reshape(-1),
+        logits = self._logits(x[self.to_device(out_rows.reshape(-1),
                                              torch.long)])
-        samples = torch.argmax(logits, dim=-1)
-        if (np.asarray(temps) > 0).any():
-            rep = lambda a, dt: self._tensor(np.repeat(np.asarray(a), W), dt)
-            temps_rep = rep(temps, torch.float32)
-            scaled = self._filter_logits(
-                logits, temps_rep, rep(top_ks, torch.int64),
-                rep(top_ps, torch.float32))
-            n = (np.repeat(np.asarray(counters, np.int64), W)
-                 + np.tile(np.arange(W), S))
-            noise = gumbel_noise(rep(seeds, torch.int64),
-                                 self._tensor(n, torch.int64),
-                                 logits.shape[-1])
-            drawn = torch.argmax(scaled + noise, dim=-1)
-            samples = torch.where(temps_rep > 0, drawn, samples)
-        samples = samples.to(torch.int32).reshape(S, W).cpu().numpy()
+        counters = (np.repeat(np.asarray(counters, np.int64), W)
+                    + np.tile(np.arange(W), S))
+        samples = self._device_sample(
+            logits, np.repeat(temps, W), np.repeat(top_ks, W),
+            np.repeat(top_ps, W), np.repeat(seeds, W), counters)
+        samples = samples.reshape(S, W).cpu().numpy()
         return np.zeros((S, W), dtype=bool), samples
 
     def warm_mixed(self, T: int, S: int, W: int):
@@ -259,6 +287,134 @@ class ModelRunner:
             z(T), z(S), z(S), z(S + 1), z(S, self.max_blocks_per_seq),
             z(S, W), z(S, W), z(S), np.zeros(S, np.float32), z(S),
             np.ones(S, np.float32), z(S), z(S))
+
+    # ---- the rectangular steps of the split path -------------------------
+
+    def _backbone(self, tokens, q_positions, kv_lens, q_lens,
+                  block_tables) -> torch.Tensor:
+        """Rectangular backbone: `tokens` (S, Bq) is a host array or a
+        device tensor (the previous step's sampled ids); q_positions,
+        kv_lens, q_lens (S,) and block_tables (S, max_pages) are host
+        arrays. Row (s, b) sits at position q_positions[s] + b. Writes the
+        K/V of the valid rows b < q_lens[s] into the pool and returns the
+        final hidden states, flat (S * Bq, d)."""
+        config = self.config
+        params = self.params
+        S, Bq = np.shape(tokens)
+        H, K, hd = config.n_heads, config.n_kv_heads, config.head_dim
+        scale = 1.0 / math.sqrt(hd)
+        tables = np.asarray(block_tables)
+        positions = (np.asarray(q_positions, np.int64)[:, None]
+                     + np.arange(Bq)[None, :])
+        # Only the valid rows are written: torch has no drop mode for
+        # out-of-bounds scatter indices, and -1 would wrap onto the pool's
+        # last page. The rows, pages and slots are known on the host.
+        s_idx, b_idx = np.nonzero(
+            np.arange(Bq)[None, :] < np.asarray(q_lens)[:, None])
+        pos = positions[s_idx, b_idx]
+        logical = np.clip(pos // self.block_size, 0, tables.shape[1] - 1)
+        n_valid = len(s_idx)
+        rows = self.to_device(s_idx * Bq + b_idx, torch.long)
+        block_ids = self.to_device(tables[s_idx, logical], torch.long)
+        offsets = self.to_device(pos % self.block_size, torch.long)
+        rope_pos = self.to_device(
+            np.clip(positions, 0, config.max_seq - 1).reshape(-1), torch.long)
+        tables_t = self.to_device(tables)
+        kv_lens_t = self.to_device(kv_lens)
+        q_pos_t = self.to_device(q_positions)
+        x = params["embed"][self.to_device(tokens, torch.long).reshape(-1)]
+        x = x.to(config.dtype)                                  # (S*Bq, d)
+        layers = params["layers"]
+        for li in range(config.n_layers):
+            h = rms_norm(x, layers["attn_norm"][li], config.norm_eps)
+            q = (h @ layers["wq"][li]).reshape(S * Bq, H, hd)
+            k = (h @ layers["wk"][li]).reshape(S * Bq, K, hd)
+            v = (h @ layers["wv"][li]).reshape(S * Bq, K, hd)
+            q = apply_rope(q, self.cos, self.sin, rope_pos)
+            k = apply_rope(k, self.cos, self.sin, rope_pos)
+            ck, cv = self.cache["k"][li], self.cache["v"][li]
+            if n_valid:
+                # Kv-head dim first, as in _backbone_mixed.
+                ck[:, block_ids, offsets] = k[rows].transpose(0, 1)
+                cv[:, block_ids, offsets] = v[rows].transpose(0, 1)
+            attn = pa.ragged_paged_attention(
+                q.reshape(S, Bq, H, hd), ck, cv, tables_t, kv_lens_t,
+                q_pos_t, scale=scale)
+            x = x + attn.reshape(S * Bq, H * hd) @ layers["wo"][li]
+            h = rms_norm(x, layers["mlp_norm"][li], config.norm_eps)
+            x = x + swiglu(h @ layers["w_gate"][li],
+                           h @ layers["w_up"][li]) @ layers["w_down"][li]
+        return rms_norm(x, params["final_norm"], config.norm_eps)
+
+    def _last_logits(self, tokens, q_positions, kv_lens, q_lens,
+                     block_tables) -> torch.Tensor:
+        """fp32 logits (S, vocab) of each sequence's last real row: only
+        those rows pay the vocab matmul."""
+        x = self._backbone(tokens, q_positions, kv_lens, q_lens,
+                           block_tables)
+        S, Bq = np.shape(tokens)
+        last = np.arange(S) * Bq + np.maximum(np.asarray(q_lens) - 1, 0)
+        return self._logits(x[self.to_device(last, torch.long)])
+
+    @torch.no_grad()
+    def step(self, tokens, q_positions, kv_lens, q_lens,
+             block_tables) -> torch.Tensor:
+        """One rectangular step; inputs are host arrays padded to a
+        (batch, Bq) bucket by the engine. Returns fp32 logits (S, vocab) of
+        the last real row per sequence, on the device (host sampling)."""
+        self._note_shapes("step", tokens, block_tables)
+        return self._last_logits(tokens, q_positions, kv_lens, q_lens,
+                                 block_tables)
+
+    @torch.no_grad()
+    def step_verify(self, tokens, q_positions, kv_lens, q_lens,
+                    block_tables) -> torch.Tensor:
+        """Speculative-verify step: greedy ids (S, Bq) int32 on the device;
+        row j's id is the model's next token after tokens[:, :j+1]. The
+        same `_logits` expression as `step` and `step_mixed`, so all heads
+        round alike."""
+        self._note_shapes("verify", tokens, block_tables)
+        x = self._backbone(tokens, q_positions, kv_lens, q_lens,
+                           block_tables)
+        return torch.argmax(self._logits(x), dim=-1).to(
+            torch.int32).reshape(np.shape(tokens))
+
+    @torch.no_grad()
+    def step_sample(self, tokens, q_positions, kv_lens, q_lens,
+                    block_tables, temps, top_ks, top_ps, seeds,
+                    counters) -> torch.Tensor:
+        """Rectangular step + sampling on the device. `tokens` may be a
+        device tensor (the previous step's ids: chaining without a host
+        sync). Returns the sampled ids (S,) int32 on the device; the
+        caller decides when to fetch them."""
+        self._note_shapes("sample", tokens, block_tables)
+        logits = self._last_logits(tokens, q_positions, kv_lens, q_lens,
+                                   block_tables)
+        return self._device_sample(logits, temps, top_ks, top_ps, seeds,
+                                   counters)
+
+    @torch.no_grad()
+    def step_sample_multi(self, n_steps: int, tokens, q_positions, kv_lens,
+                          q_lens, block_tables, temps, top_ks, top_ps, seeds,
+                          counters) -> torch.Tensor:
+        """n_steps decode tokens per sequence in one call (JAX's lax.scan
+        as a loop): each step's sampled ids feed the next on the device,
+        with q_positions, kv_lens and counters advanced by the step; no
+        host sync between steps. The engine has allocated pages for all of
+        them. Returns int32 (S, n_steps) on the device."""
+        self._note_shapes(f"multi{n_steps}", tokens, block_tables)
+        q_positions = np.asarray(q_positions)
+        kv_lens = np.asarray(kv_lens)
+        counters = np.asarray(counters, np.int64)
+        out = []
+        for step in range(n_steps):
+            logits = self._last_logits(tokens, q_positions + step,
+                                       kv_lens + step, q_lens, block_tables)
+            sampled = self._device_sample(logits, temps, top_ks, top_ps,
+                                          seeds, counters + step)
+            out.append(sampled)
+            tokens = sampled[:, None]
+        return torch.stack(out, dim=1)
 
     # ---- on-device sampling ----------------------------------------------
 
@@ -285,6 +441,27 @@ class ModelRunner:
                              torch.full_like(sp, float("inf"))).amin(
                                  dim=-1, keepdim=True)
         return torch.where(probs >= cutoff, scaled, neg)
+
+    def _device_sample(self, logits, temps, top_ks, top_ps, seeds,
+                       counters) -> torch.Tensor:
+        """The one sampler of every head: greedy where temps <= 0, else
+        Gumbel-max over `_filter_logits` with noise keyed on (seeds,
+        counters). Sampling parameters are host arrays (N,); the draw of a
+        row depends on its own (seed, counter) only, so split and unified
+        ticks sample alike. Returns int32 ids (N,) on the device."""
+        samples = torch.argmax(logits, dim=-1)
+        temps = np.asarray(temps, np.float32)
+        if (temps > 0).any():
+            temps_t = self.to_device(temps, torch.float32)
+            scaled = self._filter_logits(
+                logits, temps_t, self.to_device(top_ks, torch.int64),
+                self.to_device(top_ps, torch.float32))
+            noise = gumbel_noise(self.to_device(seeds, torch.int64),
+                                 self.to_device(counters, torch.int64),
+                                 logits.shape[-1])
+            drawn = torch.argmax(scaled + noise, dim=-1)
+            samples = torch.where(temps_t > 0, drawn, samples)
+        return samples.to(torch.int32)
 
     # ---- buckets -----------------------------------------------------------
 

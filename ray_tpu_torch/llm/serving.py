@@ -4,8 +4,8 @@ Port of the replica side of ray_tpu/llm/serving.py: a background thread
 drives the engine's step loop while request threads enqueue prompts and
 consume per-request queues, so many requests stream concurrently through
 one continuously-batched engine. The cluster deployment, router, disagg
-tiers, prefix-store tiers, LoRA and migration are later slices;
-`build_engine` refuses their options with a ValueError.
+tiers, prefix-store tiers, LoRA and migration are later slices; the
+engine refuses their options with a ValueError.
 """
 
 from __future__ import annotations
@@ -41,25 +41,33 @@ class LLMConfig:
     prefill_chunk: int = 128
     tokenizer: Any = None
     enable_prefix_caching: bool = True
-    # Options of the JAX package that later slices port; any value but the
-    # default here is refused by the engine.
+    # Engine paths, as in the JAX package: speculative_ngram > 0 runs on
+    # the split path only (the engine refuses it with unified_ticks=True
+    # and decode_multi_step=1).
     speculative_ngram: int = 0
     decode_multi_step: int = 1
     unified_ticks: bool = True
     token_budget: Optional[int] = None
+    # Step buckets run once at build, so no request pays a first use:
+    # "full" = the whole batch x chunk grid incl. the host-logits step,
+    # "light" = the sequential-traffic set, "off" = none.
+    warmup_buckets: str = "full"
     stream_timeout_s: float = 300.0
     device: Any = "cuda"
 
 
 def build_engine(llm_config: LLMConfig, params: Optional[Dict] = None):
-    """Construct a ready (warmed) LLMEngine per config on
-    llm_config.device (raises without CUDA unless device="cpu"). `params`
-    (the port's parameter dict) defaults to random weights from
-    llm_config.seed."""
+    """Construct an LLMEngine per config on llm_config.device (raises
+    without CUDA unless device="cpu"), warmed per
+    llm_config.warmup_buckets. `params` (the port's parameter dict)
+    defaults to random weights from llm_config.seed."""
     from ray_tpu_torch.llm.engine import LLMEngine
     from ray_tpu_torch.llm.model_runner import ModelRunner
     from ray_tpu_torch.models import llama
 
+    warm = llm_config.warmup_buckets
+    if warm not in ("off", "light", "full"):
+        raise ValueError(f"warmup_buckets: {warm!r} not off/light/full")
     device = resolve_device(llm_config.device)
     config = llm_config.model_config or llama.LlamaConfig.tiny()
     if params is None:
@@ -79,7 +87,8 @@ def build_engine(llm_config: LLMConfig, params: Optional[Dict] = None):
         decode_multi_step=llm_config.decode_multi_step,
         unified_ticks=llm_config.unified_ticks,
         token_budget=llm_config.token_budget)
-    engine.warmup()
+    if warm != "off":
+        engine.warmup(full=warm == "full")
     return engine
 
 
@@ -180,6 +189,7 @@ class LLMServer:
             top_p=float(request.get("top_p", 1.0)),
             max_tokens=int(request.get("max_tokens", 32)),
             stop_token_ids=request.get("stop_token_ids"),
+            repetition_penalty=float(request.get("repetition_penalty", 1.0)),
             seed=request.get("seed"))
         return prompt, params, request.get("request_id")
 
@@ -210,8 +220,8 @@ class LLMServer:
 
     def completions(self, request: Dict) -> Dict:
         """OpenAI-ish /v1/completions: {"prompt": str|[int], "max_tokens",
-        "temperature", "top_k", "top_p", "stop_token_ids", "seed",
-        "request_id"}."""
+        "temperature", "top_k", "top_p", "stop_token_ids",
+        "repetition_penalty", "seed", "request_id"}."""
         prompt, params, rid = self._parse(request)
         rid = self._submit(prompt, params, rid)
         q = self._streams[rid]

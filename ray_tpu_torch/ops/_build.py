@@ -90,6 +90,11 @@ def _bind(lib):
     fn.restype = i
     lib.rpa_unified_workspace_bytes.argtypes = [i] * 6
     lib.rpa_unified_workspace_bytes.restype = ctypes.c_longlong
+    fn = lib.rpa_forward
+    fn.argtypes = [p] * 8 + [i] * 8 + [ctypes.c_float, i, p]
+    fn.restype = i
+    lib.rpa_workspace_bytes.argtypes = [i] * 7
+    lib.rpa_workspace_bytes.restype = ctypes.c_longlong
     lib.rpa_error_string.argtypes = [i]
     lib.rpa_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,36 +1,48 @@
-// Unified ragged paged attention for Hopper (sm_90a), token-major layout.
+// Ragged paged attention for Hopper (sm_90a): the token-major layout (K5)
+// and the rectangular layout (K6), one device routine behind two kernels.
 //
-// Replaces: ray_tpu/ops/paged_attention.py `_rua_kernel` (the Pallas TPU
-// kernel behind `ragged_paged_attention_unified`, K5 in ROADMAP.md), the
-// attention of every default engine tick.
+// Replaces, in ray_tpu/ops/paged_attention.py (kernel ids of ROADMAP.md):
+//   * K5, `_rua_kernel`, behind `ragged_paged_attention_unified`: the
+//     attention of every default (unified) engine tick;
+//   * K6, `_rpa_kernel`, behind `ragged_paged_attention`: the attention of
+//     the split path (prefill chunks, async and host-logits decode,
+//     multi-step decode, speculative verify).
 //
-// What it computes (same as the TPU kernel and the plain PyTorch version
-// `ragged_paged_attention_unified_reference`):
-//   q (T, H, hd) flat token-major; sequence s owns rows
-//   cu_q_lens[s] .. cu_q_lens[s+1]; row t of s sits at absolute position
-//   q_positions[s] + (t - cu_q_lens[s]) and attends to the keys k_pos of s
-//   with k_pos < kv_lens[s] and k_pos <= its position; keys live in pages
+// What they compute (same as the TPU kernels and the plain PyTorch versions
+// `ragged_paged_attention_unified_reference` and
+// `ragged_paged_attention_reference`):
+//   K5: q (T, H, hd) flat token-major; sequence s owns rows
+//       cu_q_lens[s] .. cu_q_lens[s+1]; row t of s sits at absolute position
+//       q_positions[s] + (t - cu_q_lens[s]). Rows past cu_q_lens[S] are
+//       padding and come out as exact zeros.
+//   K6: q (S, Bq, H, hd); row (s, b) sits at position q_positions[s] + b.
+//       K6 takes no q_lens, so every row b < Bq of a sequence with
+//       kv_lens[s] > 0 is computed, padding rows of a chunk included, as the
+//       TPU kernel computes them. A sequence with kv_lens[s] == 0 is padding
+//       and comes out as exact zeros (the TPU kernel's empty page loop).
+//   Both: a row attends to the keys k_pos of its sequence with
+//   k_pos < kv_lens[s] and k_pos <= its position; keys live in pages
 //   (K, P, ps, hd) addressed through block_tables (S, max_pages). Online
-//   softmax in fp32, output acc / max(l, 1e-30) in q's dtype. Rows past
-//   cu_q_lens[S] are padding and come out as exact zeros. GQA: the G = H/K
-//   query heads of a kv head read its K/V unrepeated.
+//   softmax in fp32, output acc / max(l, 1e-30) in q's dtype. GQA: the
+//   G = H/K query heads of a kv head read its K/V unrepeated.
 //
-// What bounds it on an H100: device-memory bytes. Each (token, kv head)
+// What bounds them on an H100: device-memory bytes. Each (row, kv head)
 // reads its sequence's K/V pages once and does 4*hd flops per key and
 // query head, far below the ~295 flops per byte at which the tensor cores
 // would become the limit. The design therefore spends nothing on tensor
 // cores and everything on keeping many K/V loads in flight:
-//   * one thread block per (token, kv head, key split); its G warps are the
+//   * one thread block per (row, kv head, key split); its G warps are the
 //     G query heads sharing that kv head, so one staged K/V tile serves all
 //     of them;
-//   * the block finds its sequence by binary search over cu_q_lens and walks
-//     only that sequence's pages, up to min(kv_len, position + 1) keys, so
-//     no masked page is read and a decode row costs O(its own context);
-//   * a token's keys are split into chunks of kSplitKeys across blocks
+//   * the block finds its sequence itself (K5: binary search over
+//     cu_q_lens; K6: s = row / Bq) and walks only that sequence's pages, up
+//     to min(kv_len, position + 1) keys, so no masked page is read and a
+//     decode row costs O(its own context);
+//   * a row's keys are split into chunks of kSplitKeys across blocks
 //     (grid z), so a few decode rows with long contexts still fill the SMs
-//     and do not become the tail of a mixed batch; a token with more than
-//     one chunk writes fp32 partials (m, l, unnormalised acc) and a second
-//     small kernel merges them; a token with one chunk writes its output
+//     and do not become the tail of a batch; a row with more than one
+//     chunk writes fp32 partials (m, l, unnormalised acc) and a second
+//     small kernel merges them; a row with one chunk writes its output
 //     directly;
 //   * K/V pages are staged in shared memory in their storage type, several
 //     pages per stage (about 32 KB), with 16-byte loads from every thread so
@@ -38,13 +50,15 @@
 //   * each warp scores keys in groups of 8 with independent butterfly
 //     reductions (instruction-level parallelism instead of one serial
 //     shuffle chain per key); masked keys of a group get probability 0.
-// Not done yet (later work, see PERF.md): cp.async/TMA double buffering,
-// wgmma for long prefill chunks.
+// Not done yet (later work, see PERF.md): cp.async/TMA double buffering;
+// a query tile per sequence on tensor cores (mma.sync/wgmma), which would
+// help the 128-row prefill chunks of K5 and K6 alike (their rows re-read
+// the same pages and are bound by instruction issue, not bytes).
 //
-// Plain C interface, bound with ctypes. The launcher returns the
-// cudaError_t of the launches; the Python wrapper raises on non-zero and
-// allocates the fp32 workspace whose size rpa_unified_workspace_bytes
-// gives.
+// Plain C interface, bound with ctypes. Each launcher returns the
+// cudaError_t of its launches; the Python wrappers raise on non-zero and
+// allocate the fp32 workspace whose size the *_workspace_bytes functions
+// give.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,18 +86,40 @@ __device__ __forceinline__ int seq_of(const int32_t* cu_q_lens, int S, int t) {
   int lo = 1, hi = S + 1;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
-    if (cu_q_lens[mid] <= t) lo = mid + 1; else hi = mid;
+    if (__ldg(cu_q_lens + mid) <= t) lo = mid + 1; else hi = mid;
   }
   return min(lo - 1, S - 1);
 }
 
-// Keys token t attends to: min(kv_len, position + 1), at least 0.
-__device__ __forceinline__ int keys_of(const int32_t* kv_lens,
-                                       const int32_t* q_positions,
-                                       const int32_t* cu_q_lens, int s, int t) {
-  const int q_abs = q_positions[s] + (t - cu_q_lens[s]);
-  return max(0, min(kv_lens[s], q_abs + 1));
-}
+// Where a row of each layout belongs. locate() returns false for a padding
+// row (its output is exact zeros); otherwise it sets the row's sequence and
+// the number of keys the row attends to, min(kv_len, position + 1) >= 0.
+struct UnifiedRows {   // K5: token-major, spans delimited by cu_q_lens
+  const int32_t* kv_lens;
+  const int32_t* q_positions;
+  const int32_t* cu_q_lens;
+  int S;
+  __device__ __forceinline__ bool locate(int t, int& s, int& n_keys) const {
+    if (t >= __ldg(cu_q_lens + S)) return false;
+    s = seq_of(cu_q_lens, S, t);
+    const int q_abs = __ldg(q_positions + s) + (t - __ldg(cu_q_lens + s));
+    n_keys = max(0, min(__ldg(kv_lens + s), q_abs + 1));
+    return true;
+  }
+};
+
+struct RectRows {      // K6: rectangular (S, Bq), row = s * Bq + b
+  const int32_t* kv_lens;
+  const int32_t* q_positions;
+  int Bq;
+  __device__ __forceinline__ bool locate(int r, int& s, int& n_keys) const {
+    s = r / Bq;
+    const int kv_len = __ldg(kv_lens + s);
+    if (kv_len <= 0) return false;
+    n_keys = max(0, min(kv_len, __ldg(q_positions + s) + (r - s * Bq) + 1));
+    return true;
+  }
+};
 
 __host__ __device__ __forceinline__ int splits_for(int n_keys,
                                                    int split_keys) {
@@ -101,18 +137,26 @@ __host__ __forceinline__ int split_keys_for(int stage_keys) {
   return keys < stage_keys ? stage_keys : keys;
 }
 
+// The kernels' own parameters, shared by both layouts: each pointer a
+// __restrict__ parameter of the __global__ function itself, as the
+// compiler schedules the inner loop best that way (a struct of the same
+// values cost K5 5-9%, one card, in turns).
+#define ATTN_PARAMS(T)                                                     \
+  const T* __restrict__ q, const T* __restrict__ k_pages,                  \
+      const T* __restrict__ v_pages,                                       \
+      const int32_t* __restrict__ block_tables, T* __restrict__ out,       \
+      float* __restrict__ part_acc, float* __restrict__ part_ml, int H,    \
+      int K, int P, int ps, int max_pages, int stage_keys, int split_keys, \
+      int n_split, float scale
+#define ATTN_ARGS                                                          \
+  q, k_pages, v_pages, block_tables, out, part_acc, part_ml, H, K, P, ps,  \
+      max_pages, stage_keys, split_keys, n_split, scale
+
+// The body of both kernels: block (row, kv head, key split).
 // E = head_dim / 32: the head-dim elements each lane owns (lane + 32 * i).
-template <typename T, int E>
-__global__ void __launch_bounds__(1024)
-rua_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-           const T* __restrict__ v_pages,
-           const int32_t* __restrict__ block_tables,
-           const int32_t* __restrict__ kv_lens,
-           const int32_t* __restrict__ q_positions,
-           const int32_t* __restrict__ cu_q_lens, T* __restrict__ out,
-           float* __restrict__ part_acc, float* __restrict__ part_ml,
-           int H, int K, int P, int ps, int S, int max_pages,
-           int stage_keys, int split_keys, int n_split, float scale) {
+template <typename T, int E, typename Rows>
+__device__ __forceinline__ void attend_row(const Rows& rows,
+                                           ATTN_PARAMS(T)) {
   constexpr int HD = 32 * E;
   constexpr int VEC = 16 / sizeof(T);
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -127,15 +171,14 @@ rua_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   const int h = kh * G + (threadIdx.x >> 5);
   T* out_row = out + ((size_t)t * H + h) * HD;
 
-  if (t >= cu_q_lens[S]) {   // padding row (uniform across the block)
+  int s, n_keys;
+  if (!rows.locate(t, s, n_keys)) {   // padding (uniform across the block)
     if (split == 0) {
 #pragma unroll
       for (int i = 0; i < E; ++i) store(out_row + lane + 32 * i, 0.f);
     }
     return;
   }
-  const int s = seq_of(cu_q_lens, S, t);
-  const int n_keys = keys_of(kv_lens, q_positions, cu_q_lens, s, t);
   const int n_splits = splits_for(n_keys, split_keys);
   if (split >= n_splits) return;
   const int k_begin = split * split_keys;
@@ -204,12 +247,12 @@ rua_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
       l = l * alpha + p_sum;
 #pragma unroll
       for (int i = 0; i < E; ++i) {
-        float a = acc[i] * alpha;
+        float acc_i = acc[i] * alpha;
 #pragma unroll
         for (int g = 0; g < kKeyGroup; ++g)
-          a += p[g] * to_float(
-                   v_s[(size_t)min(j0 + g, n_in - 1) * HD + lane + 32 * i]);
-        acc[i] = a;
+          acc_i += p[g] * to_float(
+                       v_s[(size_t)min(j0 + g, n_in - 1) * HD + lane + 32 * i]);
+        acc[i] = acc_i;
       }
       m = m_new;
     }
@@ -231,24 +274,20 @@ rua_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
 }
 
-// Merge the key-split partials of every token that has more than one:
+// Merge the key-split partials of every row that has more than one:
 // out = sum_i acc_i e^(m_i - M) / max(sum_i l_i e^(m_i - M), 1e-30).
-// One block per (token, query head), one thread per head-dim element.
-template <typename T>
-__global__ void rua_merge_kernel(const int32_t* __restrict__ kv_lens,
-                                 const int32_t* __restrict__ q_positions,
-                                 const int32_t* __restrict__ cu_q_lens,
-                                 const float* __restrict__ part_acc,
-                                 const float* __restrict__ part_ml,
-                                 T* __restrict__ out, int H, int hd, int S,
-                                 int split_keys, int n_split) {
+// One block per (row, query head), one thread per head-dim element.
+template <typename T, typename Rows>
+__device__ __forceinline__ void merge_row(
+    const Rows& rows, const float* __restrict__ part_acc,
+    const float* __restrict__ part_ml, T* __restrict__ out, int H, int hd,
+    int split_keys, int n_split) {
   const int t = blockIdx.x;
   const int h = blockIdx.y;
-  if (t >= cu_q_lens[S]) return;
-  const int s = seq_of(cu_q_lens, S, t);
-  const int n_splits =
-      splits_for(keys_of(kv_lens, q_positions, cu_q_lens, s, t), split_keys);
-  if (n_splits == 1) return;   // written by rua_kernel directly
+  int s, n_keys;
+  if (!rows.locate(t, s, n_keys)) return;
+  const int n_splits = splits_for(n_keys, split_keys);
+  if (n_splits == 1) return;   // written by the attention kernel directly
   const size_t slot0 = ((size_t)t * H + h) * n_split;
   float m_max = kNegInf;
   for (int i = 0; i < n_splits; ++i)
@@ -264,6 +303,43 @@ __global__ void rua_merge_kernel(const int32_t* __restrict__ kv_lens,
   }
 }
 
+// Named kernels, so that a profile tells K5 (rua_*) from K6 (rpa_*).
+#define MERGE_PARAMS(T)                                                    \
+  const float* __restrict__ part_acc, const float* __restrict__ part_ml,   \
+      T* __restrict__ out, int H, int hd, int split_keys, int n_split
+#define MERGE_ARGS part_acc, part_ml, out, H, hd, split_keys, n_split
+
+template <typename T, int E>
+__global__ void __launch_bounds__(1024)
+rua_kernel(UnifiedRows rows, ATTN_PARAMS(T)) {
+  attend_row<T, E>(rows, ATTN_ARGS);
+}
+
+template <typename T, int E>
+__global__ void __launch_bounds__(1024)
+rpa_kernel(RectRows rows, ATTN_PARAMS(T)) {
+  attend_row<T, E>(rows, ATTN_ARGS);
+}
+
+template <typename T>
+__global__ void rua_merge_kernel(UnifiedRows rows, MERGE_PARAMS(T)) {
+  merge_row<T>(rows, MERGE_ARGS);
+}
+
+template <typename T>
+__global__ void rpa_merge_kernel(RectRows rows, MERGE_PARAMS(T)) {
+  merge_row<T>(rows, MERGE_ARGS);
+}
+
+template <typename T, int E>
+auto attend_kernel(UnifiedRows) { return rua_kernel<T, E>; }
+template <typename T, int E>
+auto attend_kernel(RectRows) { return rpa_kernel<T, E>; }
+template <typename T>
+auto merge_kernel(UnifiedRows) { return rua_merge_kernel<T>; }
+template <typename T>
+auto merge_kernel(RectRows) { return rpa_merge_kernel<T>; }
+
 struct Plan {
   int stage_keys, split_keys, n_split;
   size_t smem;
@@ -278,59 +354,74 @@ Plan plan_for(int row_bytes, int ps, int max_pages) {
   return p;
 }
 
-template <typename T, int E>
-cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
-                   const void* block_tables, const void* kv_lens,
-                   const void* q_positions, const void* cu_q_lens, void* out,
-                   void* workspace, int T_, int H, int K, int P, int ps,
-                   int S, int max_pages, float scale, cudaStream_t stream) {
+long long workspace_bytes(int n_rows, int H, int ps, int hd, int max_pages,
+                          int is_bf16) {
+  const Plan p = plan_for(hd * (is_bf16 ? 2 : 4), ps, max_pages);
+  if (p.n_split == 1) return 0;
+  return (long long)n_rows * H * p.n_split * (hd + 2) *
+         (long long)sizeof(float);
+}
+
+// Grid (n_rows, K, n_split) of G warps, then the merge when any row may
+// have more than one key split.
+template <typename T, int E, typename Rows>
+cudaError_t launch(const Rows& rows, int n_rows, const void* q,
+                   const void* k_pages, const void* v_pages,
+                   const void* block_tables, void* out, void* workspace,
+                   int H, int K, int P, int ps, int max_pages, float scale,
+                   cudaStream_t stream) {
   constexpr int HD = 32 * E;
   const Plan p = plan_for(HD * (int)sizeof(T), ps, max_pages);
+  auto attend = attend_kernel<T, E>(rows);
   if (p.smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        rua_kernel<T, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)p.smem);
+        attend, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
     if (err != cudaSuccess) return err;
   }
+  const T* qp = static_cast<const T*>(q);
+  const T* kp = static_cast<const T*>(k_pages);
+  const T* vp = static_cast<const T*>(v_pages);
+  const int32_t* bt = static_cast<const int32_t*>(block_tables);
+  T* op = static_cast<T*>(out);
   float* part_acc = static_cast<float*>(workspace);
-  float* part_ml = part_acc + (size_t)T_ * H * p.n_split * HD;
-  const int32_t* cu = static_cast<const int32_t*>(cu_q_lens);
-  const int32_t* kv = static_cast<const int32_t*>(kv_lens);
-  const int32_t* qp = static_cast<const int32_t*>(q_positions);
-  rua_kernel<T, E><<<dim3(T_, K, p.n_split), 32 * (H / K), p.smem,
-                     stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages),
-      static_cast<const int32_t*>(block_tables), kv, qp, cu,
-      static_cast<T*>(out), part_acc, part_ml, H, K, P, ps, S, max_pages,
+  float* part_ml = part_acc + (size_t)n_rows * H * p.n_split * HD;
+  attend<<<dim3(n_rows, K, p.n_split), 32 * (H / K), p.smem, stream>>>(
+      rows, qp, kp, vp, bt, op, part_acc, part_ml, H, K, P, ps, max_pages,
       p.stage_keys, p.split_keys, p.n_split, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || p.n_split == 1) return err;
-  rua_merge_kernel<T><<<dim3(T_, H), HD, 0, stream>>>(
-      kv, qp, cu, part_acc, part_ml, static_cast<T*>(out), H, HD, S,
-      p.split_keys, p.n_split);
+  auto merge = merge_kernel<T>(rows);
+  merge<<<dim3(n_rows, H), HD, 0, stream>>>(rows, part_acc, part_ml, op, H,
+                                            HD, p.split_keys, p.n_split);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_hd(int hd, const void* q, const void* k_pages,
-                        const void* v_pages, const void* block_tables,
-                        const void* kv_lens, const void* q_positions,
-                        const void* cu_q_lens, void* out, void* workspace,
-                        int T_, int H, int K, int P, int ps, int S,
-                        int max_pages, float scale, cudaStream_t stream) {
-#define RUA_CASE(HD_)                                                       \
-  case HD_:                                                                 \
-    return launch<T, HD_ / 32>(q, k_pages, v_pages, block_tables, kv_lens,  \
-                               q_positions, cu_q_lens, out, workspace, T_,  \
-                               H, K, P, ps, S, max_pages, scale, stream);
-  switch (hd) {   // Llama-3-8B (128) and the card test's tiny config (64)
-    RUA_CASE(64)
-    RUA_CASE(128)
+template <typename Rows>
+cudaError_t dispatch(const Rows& rows, int n_rows, int hd, int is_bf16,
+                     const void* q, const void* k_pages, const void* v_pages,
+                     const void* block_tables, void* out, void* workspace,
+                     int H, int K, int P, int ps, int max_pages, float scale,
+                     void* stream) {
+  if (n_rows == 0) return cudaSuccess;
+  if (K <= 0 || H % K != 0 || H / K > 32 || ps <= 0)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define RPA_CASE(T_, HD_)                                                    \
+  return launch<T_, HD_ / 32>(rows, n_rows, q, k_pages, v_pages,             \
+                              block_tables, out, workspace, H, K, P, ps,     \
+                              max_pages, scale, st);
+  // Head dims with a caller: Llama-3-8B (128), the card tests' config (64).
+  switch (hd) {
+    case 64:
+      if (is_bf16) { RPA_CASE(__nv_bfloat16, 64) }
+      RPA_CASE(float, 64)
+    case 128:
+      if (is_bf16) { RPA_CASE(__nv_bfloat16, 128) }
+      RPA_CASE(float, 128)
     default:
       return cudaErrorInvalidValue;
   }
-#undef RUA_CASE
+#undef RPA_CASE
 }
 
 }  // namespace
@@ -344,29 +435,42 @@ extern "C" const char* rpa_error_string(int code) {
 extern "C" long long rpa_unified_workspace_bytes(int T_, int H, int ps,
                                                  int hd, int max_pages,
                                                  int is_bf16) {
-  const Plan p = plan_for(hd * (is_bf16 ? 2 : 4), ps, max_pages);
-  if (p.n_split == 1) return 0;
-  return (long long)T_ * H * p.n_split * (hd + 2) * (long long)sizeof(float);
+  return workspace_bytes(T_, H, ps, hd, max_pages, is_bf16);
 }
 
+// K5: q (T, H, hd), cu_q_lens (S + 1,).
 extern "C" int rpa_unified_forward(
     const void* q, const void* k_pages, const void* v_pages,
     const void* block_tables, const void* kv_lens, const void* q_positions,
     const void* cu_q_lens, void* out, void* workspace, int T_, int H, int K,
     int P, int ps, int hd, int S, int max_pages, float scale, int is_bf16,
     void* stream) {
-  if (T_ == 0) return (int)cudaSuccess;
-  if (K <= 0 || H % K != 0 || H / K > 32 || ps <= 0 || S <= 0)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      is_bf16 ? dispatch_hd<__nv_bfloat16>(hd, q, k_pages, v_pages,
-                                           block_tables, kv_lens, q_positions,
-                                           cu_q_lens, out, workspace, T_, H,
-                                           K, P, ps, S, max_pages, scale, st)
-              : dispatch_hd<float>(hd, q, k_pages, v_pages, block_tables,
-                                   kv_lens, q_positions, cu_q_lens, out,
-                                   workspace, T_, H, K, P, ps, S, max_pages,
-                                   scale, st);
-  return (int)err;
+  if (S <= 0) return (int)cudaErrorInvalidValue;
+  const UnifiedRows rows{static_cast<const int32_t*>(kv_lens),
+                         static_cast<const int32_t*>(q_positions),
+                         static_cast<const int32_t*>(cu_q_lens), S};
+  return (int)dispatch(rows, T_, hd, is_bf16, q, k_pages, v_pages,
+                       block_tables, out, workspace, H, K, P, ps, max_pages,
+                       scale, stream);
+}
+
+// Bytes of fp32 workspace rpa_forward needs for S * Bq rows.
+extern "C" long long rpa_workspace_bytes(int S, int Bq, int H, int ps, int hd,
+                                         int max_pages, int is_bf16) {
+  return workspace_bytes(S * Bq, H, ps, hd, max_pages, is_bf16);
+}
+
+// K6: q (S, Bq, H, hd), one row per (s, b).
+extern "C" int rpa_forward(const void* q, const void* k_pages,
+                           const void* v_pages, const void* block_tables,
+                           const void* kv_lens, const void* q_positions,
+                           void* out, void* workspace, int S, int Bq, int H,
+                           int K, int P, int ps, int hd, int max_pages,
+                           float scale, int is_bf16, void* stream) {
+  if (Bq <= 0) return (int)cudaErrorInvalidValue;
+  const RectRows rows{static_cast<const int32_t*>(kv_lens),
+                      static_cast<const int32_t*>(q_positions), Bq};
+  return (int)dispatch(rows, S * Bq, hd, is_bf16, q, k_pages, v_pages,
+                       block_tables, out, workspace, H, K, P, ps, max_pages,
+                       scale, stream);
 }

@@ -1,4 +1,4 @@
-"""Ragged paged attention: the serving hot op (plain versions + K5 kernel).
+"""Ragged paged attention: the serving hot op (plain versions, K5 and K6).
 
 Port of ray_tpu/ops/paged_attention.py with the same layouts:
   q:            (S, Bq, H, hd) rectangular, or (T, H, hd) token-major
@@ -8,10 +8,11 @@ Port of ray_tpu/ops/paged_attention.py with the same layouts:
   q_positions:  (S,) int32      absolute position of the first query token
   cu_q_lens:    (S+1,) int32    token-major span starts (unified only)
 
-`ragged_paged_attention_unified` is the entry point of the engine's
-unified tick: on a CUDA tensor it launches the hand-written Hopper kernel
+`ragged_paged_attention_unified` (K5) is the attention of the engine's
+unified tick, `ragged_paged_attention` (K6) that of the split path. On a
+CUDA tensor each launches its hand-written Hopper kernel
 (csrc/paged_attention.cu) and counts the launch; on a CPU tensor it runs
-the plain version. It never falls back from the kernel to the plain
+its plain version. Neither falls back from the kernel to the plain
 version on a CUDA tensor.
 """
 
@@ -85,11 +86,13 @@ def ragged_paged_attention_unified_reference(
     return torch.where(valid[:, None, None], out, torch.zeros_like(out))
 
 
-def _check_unified_args(q, k_pages, v_pages, block_tables, kv_lens,
-                        q_positions, cu_q_lens):
-    T, H, hd = q.shape
+def _check_args(q, k_pages, v_pages, ints):
+    """Checks shared by both kernels: q (..., H, hd) and the pages in
+    bf16/fp32 alike, the head dims the kernels instantiate, GQA grouping,
+    int32 index arrays, one device, contiguous, 16-byte aligned. `ints` is
+    ((name, tensor, ndim), ...)."""
+    H, hd = q.shape[-2:]
     K, P, ps, hd_k = k_pages.shape
-    S = kv_lens.shape[0]
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"q dtype {q.dtype}: kernel takes bfloat16/float32")
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
@@ -102,16 +105,10 @@ def _check_unified_args(q, k_pages, v_pages, block_tables, kv_lens,
         raise ValueError(f"head_dim {hd}: kernel takes 64/128")
     if H % K or H // K > 32:
         raise ValueError(f"H={H}, K={K}: need K | H and H/K <= 32")
-    ints = (("block_tables", block_tables, 2), ("kv_lens", kv_lens, 1),
-            ("q_positions", q_positions, 1), ("cu_q_lens", cu_q_lens, 1))
     for name, t, ndim in ints:
         if t.dtype != torch.int32 or t.dim() != ndim:
             raise TypeError(f"{name}: need int32 with {ndim} dims, got "
                             f"{t.dtype} with {t.dim()}")
-    if block_tables.shape[0] != S or q_positions.shape[0] != S \
-            or cu_q_lens.shape[0] != S + 1:
-        raise ValueError("block_tables/q_positions/cu_q_lens disagree with "
-                         f"S={S}")
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
                     *((n, t) for n, t, _ in ints)):
         if t.device != q.device:
@@ -121,6 +118,70 @@ def _check_unified_args(q, k_pages, v_pages, block_tables, kv_lens,
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _launch(entry, what, ws_bytes, inputs, scalars):
+    """Run one launcher of the kernel library on q's current stream, q
+    being inputs[0]: the output is allocated like q, the fp32 workspace
+    holds key-split partials. Raises on a non-zero cudaError_t."""
+    from ray_tpu_torch.ops import _build
+
+    q = inputs[0]
+    out = torch.empty_like(q)
+    workspace = torch.empty(ws_bytes // 4, dtype=torch.float32,
+                            device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = entry(*(t.data_ptr() for t in inputs), out.data_ptr(),
+                     workspace.data_ptr(), *scalars, stream)
+    _build.check(code, what)
+    return out
+
+
+def ragged_paged_attention(q, k_pages, v_pages, block_tables, kv_lens,
+                           q_positions, *, scale: Optional[float] = None):
+    """Rectangular ragged paged attention, the split path's attention: q is
+    (S, Bq, H, hd), any Bq >= 1 (decode Bq = 1, verify and prefill chunks
+    wider). Row (s, b) sits at position q_positions[s] + b; every row of a
+    sequence with kv_lens[s] > 0 is computed (there are no q_lens), and a
+    sequence with kv_lens[s] == 0 gives exact zeros on the card, as the TPU
+    kernel does.
+
+    CUDA tensors launch the K6 kernel (counted in `.launches`); CPU tensors
+    run the plain version, whose kv_len == 0 rows are a uniform softmax
+    over the gathered pages instead (no caller reads them). Block-table
+    entries are trusted: the engine only hands out pages of the pool."""
+    S, Bq, H, hd = q.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    if q.device.type == "cpu":
+        return ragged_paged_attention_reference(
+            q, k_pages, v_pages, block_tables, kv_lens, q_positions,
+            scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _check_args(q, k_pages, v_pages,
+                (("block_tables", block_tables, 2), ("kv_lens", kv_lens, 1),
+                 ("q_positions", q_positions, 1)))
+    if block_tables.shape[0] != S or kv_lens.shape[0] != S \
+            or q_positions.shape[0] != S:
+        raise ValueError("block_tables/kv_lens/q_positions disagree with "
+                         f"S={S}")
+    from ray_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    K, P, ps, _ = k_pages.shape
+    max_pages = block_tables.shape[1]
+    is_bf16 = int(q.dtype == torch.bfloat16)
+    out = _launch(
+        lib.rpa_forward, "ragged_paged_attention",
+        lib.rpa_workspace_bytes(S, Bq, H, ps, hd, max_pages, is_bf16),
+        (q, k_pages, v_pages, block_tables, kv_lens, q_positions),
+        (S, Bq, H, K, P, ps, hd, max_pages, float(scale), is_bf16))
+    ragged_paged_attention.launches += 1
+    return out
+
+
+ragged_paged_attention.launches = 0
 
 
 def ragged_paged_attention_unified(q, k_pages, v_pages, block_tables,
@@ -147,29 +208,27 @@ def ragged_paged_attention_unified(q, k_pages, v_pages, block_tables,
             cu_q_lens, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    _check_unified_args(q, k_pages, v_pages, block_tables, kv_lens,
-                        q_positions, cu_q_lens)
+    S = kv_lens.shape[0]
+    _check_args(q, k_pages, v_pages,
+                (("block_tables", block_tables, 2), ("kv_lens", kv_lens, 1),
+                 ("q_positions", q_positions, 1),
+                 ("cu_q_lens", cu_q_lens, 1)))
+    if block_tables.shape[0] != S or q_positions.shape[0] != S \
+            or cu_q_lens.shape[0] != S + 1:
+        raise ValueError("block_tables/q_positions/cu_q_lens disagree with "
+                         f"S={S}")
     from ray_tpu_torch.ops import _build
 
     lib = _build.load_library()
     K, P, ps, _ = k_pages.shape
-    S, max_pages = block_tables.shape
+    max_pages = block_tables.shape[1]
     is_bf16 = int(q.dtype == torch.bfloat16)
-    out = torch.empty_like(q)
-    # fp32 partials of tokens whose keys span several blocks.
-    ws_bytes = lib.rpa_unified_workspace_bytes(T, H, ps, hd, max_pages,
-                                               is_bf16)
-    workspace = torch.empty(ws_bytes // 4, dtype=torch.float32,
-                            device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = lib.rpa_unified_forward(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_tables.data_ptr(), kv_lens.data_ptr(),
-            q_positions.data_ptr(), cu_q_lens.data_ptr(), out.data_ptr(),
-            workspace.data_ptr(), T, H, K, P, ps, hd, S, max_pages,
-            float(scale), is_bf16, stream)
-    _build.check(code, "ragged_paged_attention_unified")
+    out = _launch(
+        lib.rpa_unified_forward, "ragged_paged_attention_unified",
+        lib.rpa_unified_workspace_bytes(T, H, ps, hd, max_pages, is_bf16),
+        (q, k_pages, v_pages, block_tables, kv_lens, q_positions,
+         cu_q_lens),
+        (T, H, K, P, ps, hd, S, max_pages, float(scale), is_bf16))
     ragged_paged_attention_unified.launches += 1
     return out
 

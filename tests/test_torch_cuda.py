@@ -1,10 +1,12 @@
-"""The port's CUDA kernel on the card (marker `cuda`; skips without one).
+"""The port's CUDA kernels on the card (marker `cuda`; skips without one).
 
 Run on a machine with an NVIDIA GPU:
     python -m pytest tests/test_torch_cuda.py -q -m cuda
-The K5 kernel (csrc/paged_attention.cu) must agree with its plain
-PyTorch version on the same inputs, fp32 rtol = atol = 1e-5, and count
-its launches; the engine must go through it on every tick.
+The K5 and K6 kernels (csrc/paged_attention.cu) must agree with their
+plain PyTorch versions on the same inputs, fp32 rtol = atol = 1e-5, bf16
+2e-2, and count their launches; the unified engine goes through K5 on
+every tick, the split engine through K6 on every runner step, and its
+decode dispatch never synchronises with the device.
 """
 
 import numpy as np
@@ -74,3 +76,83 @@ def test_engine_ticks_launch_kernel(cuda):
     assert all(len(o.output_token_ids) == 5 for o in outs)
     assert pa.ragged_paged_attention_unified.launches == \
         config.n_layers * engine.ticks
+
+
+def _rect_case(seed, dtype, q_lens, kv_lens, Bq, K=2, H=8, hd=64, ps=16,
+               max_pages=40):
+    rng = np.random.default_rng(seed)
+    S = len(q_lens)
+    P = 1 + S * max_pages
+    tables = rng.permutation(S * max_pages).reshape(S, max_pages) + 1
+    kv = np.asarray(kv_lens)
+    qp = np.maximum(kv - np.asarray(q_lens), 0)
+    f = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s, dtype=np.float32)).to("cuda", dtype)
+    i = lambda a: torch.from_numpy(  # noqa: E731
+        np.asarray(a, np.int32)).to("cuda")
+    return (f(S, Bq, H, hd), f(K, P, ps, hd), f(K, P, ps, hd), i(tables),
+            i(kv), i(qp))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_rect_kernel_matches_plain_version(cuda, dtype, tol):
+    """K6 with a chunk's padding rows (q_lens < Bq), a kv_len = 0
+    sequence (exact zeros) and a 600-key context over several key
+    splits."""
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    args = _rect_case(1, dtype, [8, 0, 5, 1], [600, 0, 37, 300], 8)
+    before = pa.ragged_paged_attention.launches
+    out = pa.ragged_paged_attention(*args)
+    torch.cuda.synchronize()
+    assert pa.ragged_paged_attention.launches == before + 1
+    ref = pa.ragged_paged_attention_reference(*args)
+    live = args[4] > 0
+    torch.testing.assert_close(out[live].float(), ref[live].float(),
+                               rtol=tol, atol=tol)
+    assert (out[~live] == 0).all()
+
+
+def test_split_engine_launches_rect_kernel_per_step(cuda):
+    """Every runner step of the split engine is n_layers K6 launches and
+    no K5 launch; the decode dispatch runs under sync-debug "error"."""
+    from ray_tpu_torch.llm.sampling import SamplingParams
+    from ray_tpu_torch.llm.serving import LLMConfig, build_engine
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    config = llama.LlamaConfig.tiny(d_model=256, n_heads=4, n_kv_heads=2,
+                                    dtype=torch.float32)
+    engine = build_engine(LLMConfig(model_config=config, block_size=16,
+                                    num_kv_blocks=64, max_batch_size=4,
+                                    prefill_chunk=32, device=cuda,
+                                    unified_ticks=False,
+                                    decode_multi_step=2))
+    steps = []
+    runner = engine.runner
+    for name in ("step", "step_sample", "step_verify"):
+        real = getattr(runner, name)
+        setattr(runner, name, lambda *a, _r=real, **k: (
+            steps.append(1), _r(*a, **k))[1])
+    multi = runner.step_sample_multi
+    runner.step_sample_multi = lambda n, *a, **k: (
+        steps.extend([1] * n), multi(n, *a, **k))[1]
+    dispatch = engine._dispatch_decode
+
+    def strict(prev):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return dispatch(prev)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    engine._dispatch_decode = strict
+    pa.ragged_paged_attention.launches = 0
+    pa.ragged_paged_attention_unified.launches = 0
+    outs = engine.generate([[1, 2, 3] * 20, [7, 8]],
+                           SamplingParams(max_tokens=7))
+    assert all(len(o.output_token_ids) == 7 for o in outs)
+    assert steps and pa.ragged_paged_attention.launches == \
+        config.n_layers * len(steps)
+    assert pa.ragged_paged_attention_unified.launches == 0

@@ -205,14 +205,21 @@ def test_sampling_frequencies_match_filtered_softmax():
 
 
 def test_engine_refuses_unported_features(weights):
+    """What stays refused: speculation on the unified tick, prefill-only
+    engines, LoRA, weight updates and unified proposals. The split path,
+    multi-step decode, split speculation and repetition penalty run."""
     _, _, tconfig, tparams = weights
-    for kw in ({"unified_ticks": False}, {"speculative_ngram": 2},
-               {"decode_multi_step": 4}, {"prefill_only": True}):
+    for kw in ({"speculative_ngram": 2},
+               {"speculative_ngram": 2, "unified_ticks": True},
+               {"prefill_only": True}):
         with pytest.raises(ValueError, match="not ported"):
             _port_engine(tconfig, tparams, **kw)
+    for kw in ({"unified_ticks": False}, {"decode_multi_step": 4},
+               {"speculative_ngram": 2, "unified_ticks": False},
+               {"speculative_ngram": 2, "decode_multi_step": 4}):
+        _port_engine(tconfig, tparams, **kw)
     eng = _port_engine(tconfig, tparams)
-    with pytest.raises(ValueError, match="not ported"):
-        eng.add_request([1, 2], SamplingParams(repetition_penalty=1.2))
+    eng.add_request([1, 2], SamplingParams(repetition_penalty=1.2))
     with pytest.raises(ValueError, match="not ported"):
         eng.add_request([1, 2], lora_name="a")
     with pytest.raises(ValueError, match="not ported"):
