@@ -4,6 +4,7 @@
     python3 chip_smoke.py                      # every phase, one card
     python3 chip_smoke.py --phases device,build,kernel
     python3 chip_smoke.py --phases device,build,kernel,split
+    python3 chip_smoke.py --phases device,build,kernel,train
 
 Phases, in order; any failure raises and the exit code is non-zero:
   1. device    nvidia-smi name + power limit, torch.cuda device name; TF32
@@ -39,6 +40,25 @@ Phases, in order; any failure raises and the exit code is non-zero:
                repetition-penalty request equals naive forward + host
                sampling, and a seeded temperature request gives the same
                tokens alone, inside a batch and on the split path.
+  7. train     the JAX package's bench training configuration (vocab
+               32000, d 2048, 14 layers, 16/8 heads, d_ff 7168, bf16) at
+               full width and depth: flash attention, "dots" remat, batch
+               4 x 2048, AdamW(1e-4, 0.9, 0.95, mu bf16), 2 warm-up and 10
+               timed steps on one seeded batch; the loss falls, every step
+               launches flash_fwd 2 x 14 times and flash_bwd_dq and
+               flash_bwd_dkv 14 times each; a torch.profiler step; the same
+               step with reference attention as a yardstick. Then the
+               long-context point (seq 16384, batch 1, "flash" remat: 14
+               flash_fwd launches per step) and an fp32 identity check (2
+               layers, batch 2 x 512: loss and every gradient with flash
+               attention equal those with the reference).
+The kernel phase also holds the three flash kernels (forward, dQ, dK/dV)
+against their plain versions in bf16 and fp32 at the train shape (4, 2048,
+16/8 heads, 128), with Llama-3-8B heads (32/8), a ragged tail (1000),
+causal sq < skv (512/1024), non-causal (1024/1536), and the long regimes
+(forward 16384, backward 8192), timing each beside
+`scaled_dot_product_attention` (library_ms; the port never calls it).
+fp32 tolerance 1e-5 for out/LSE and 1e-4 for gradients, bf16 2e-2.
 Prints a `{"kernels": [...]}` line, then, last, the device line
 `{"ok": true, "device": {...}}`; `--out FILE` also writes every result as
 JSON. Imports nothing of jax or ray_tpu.
@@ -51,17 +71,20 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import threading
 import time
 import zlib
 
-ALL_PHASES = ("device", "build", "kernel", "server", "split", "identity")
+ALL_PHASES = ("device", "build", "kernel", "server", "split", "identity",
+              "train")
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12,     # dense bf16 tensor-core rate
             "float32": 67e12}       # fp32 outside the tensor cores
 TOLERANCE = {"float32": 1e-5, "bfloat16": 2e-2}
+GRAD_TOLERANCE = {"float32": 1e-4, "bfloat16": 2e-2}   # sums of up to 16k terms
 SEED = 20261016
 RESULTS: dict = {}
 _SHARED: dict = {}   # Llama-3-8B weights, made once for server and split
@@ -95,9 +118,18 @@ def phase_build():
     t0 = time.perf_counter()
     _build.load_library()
     wall = time.perf_counter() - t0
+    name = "?"
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            log(f"  ptxas: {line.strip()}")
+        entry = re.search(r"entry function '(\S+)'", line)
+        if entry:
+            # _ZN..<len>flash_fwd_kernelI13__nv_bfloat16Li128EE... ->
+            # flash_fwd_kernel<bf16,128>
+            m = re.search(r"\d((?:flash|rua|rpa)[a-z_]*?kernel)I(\w*?)"
+                          r"(?:Li(\d+))?E", entry[1])
+            name = (f"{m[1]}<{'bf16' if 'bfloat' in m[2] else 'f32'}"
+                    f"{',' + m[3] if m[3] else ''}>" if m else entry[1][:60])
+        elif "registers" in line or "spill" in line or "error" in line:
+            log(f"  ptxas {name}: {line.strip()}")
     log(f"build: {wall:.2f} s (nvcc {_build.build_seconds or 0:.2f} s)")
     RESULTS["build_s"] = wall
 
@@ -277,7 +309,178 @@ def phase_kernel(torch):
                 _rect_bound))
             del args
     torch.cuda.empty_cache()
+    rows += _flash_cases(torch)
     RESULTS["kernel_cases"] = rows
+
+
+# Flash cases: name, (b, sq, skv, h, hkv), causal, passes. "fwd" checks the
+# forward with and without LSE, "bwd" dQ and dK/dV with a random out
+# cotangent, "bwd_glse" with an LSE cotangent as well.
+FLASH_CASES = [
+    ("train", (4, 2048, 2048, 16, 8), True, ("fwd", "bwd", "bwd_glse")),
+    ("gqa4", (1, 2048, 2048, 32, 8), True, ("fwd",)),
+    ("ragged_tail", (1, 1000, 1000, 16, 8), True, ("fwd", "bwd")),
+    ("causal_rect", (1, 512, 1024, 16, 8), True, ("fwd", "bwd")),
+    ("noncausal_rect", (1, 1024, 1536, 16, 8), False, ("fwd", "bwd")),
+    ("long_fwd", (1, 16384, 16384, 16, 8), True, ("fwd",)),
+    ("long_bwd", (1, 8192, 8192, 16, 8), True, ("bwd",)),
+]
+
+
+def _time_auto(torch, fn, budget_s=0.25, most=50):
+    """CUDA-event ms per call, with as many calls (3 to `most`) as fit
+    in about budget_s after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    once = time.perf_counter() - t0
+    return _time_ms(torch, fn, int(min(most, max(3, budget_s / once))))
+
+
+def _live_pairs(sq, skv, causal):
+    """(q, k) pairs under the mask per (batch, head): q_pos >= k_pos from
+    0 when causal."""
+    if not causal:
+        return sq * skv
+    return sum(min(skv, i + 1) for i in range(sq))
+
+
+def _flash_bound(dims, causal, dname, n_products, n_in, n_out):
+    """Least ms: 2 d flops per live pair and product over the peak rate,
+    against n_in q-sized or kv-sized inputs read once and the outputs
+    written once (plus the fp32 (b, h, sq) rows) over the HBM rate."""
+    b, sq, skv, h, hkv = dims
+    d = 128
+    es = 2 if dname == "bfloat16" else 4
+    flops = 2 * d * n_products * _live_pairs(sq, skv, causal) * b * h
+    q_bytes, kv_bytes = b * sq * h * d * es, b * skv * hkv * d * es
+    moved = sum(q_bytes if x == "q" else kv_bytes if x == "kv"
+                else 4 * b * h * sq for x in n_in + n_out)
+    t_ops, t_bytes = flops / PEAK_OPS[dname], moved / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes > t_ops
+                                       else "operations")
+
+
+def _close(torch, label, got, ref, tol):
+    """Max abs error of `got` against `ref` (tuples); raises past tol."""
+    err = 0.0
+    for g, r in zip(got, ref):
+        err = max(err, (g.float() - r.float()).abs().max().item())
+        if not (torch.isfinite(g).all() and torch.allclose(
+                g.float(), r.float(), rtol=tol, atol=tol)):
+            raise AssertionError(f"{label}: max_abs_err={err} (tol {tol})")
+    return err
+
+
+def _flash_cases(torch):
+    from ray_tpu_torch.ops import attention as attn
+
+    F = torch.nn.functional
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        for name, dims, causal, passes in FLASH_CASES:
+            b, sq, skv, h, hkv = dims
+            gen = torch.Generator(device="cuda").manual_seed(
+                SEED + zlib.crc32(name.encode()))
+
+            def randn(*shape, dt=dtype):
+                return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+            q, k, v = randn(b, sq, h, 128), randn(b, skv, hkv, 128), \
+                randn(b, skv, hkv, 128)
+            scale = 1.0 / math.sqrt(128)
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+            def sdpa(qt=qt, kt=kt, vt=vt):
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, scale=scale,
+                    enable_gqa=True)
+
+            def row(kernel, case, err, fn, plain, bound, library_ms):
+                before = getattr(attn, kernel).launches
+                r = dict(kernel=kernel, case=case, dtype=dname,
+                         max_abs_err=err, kernel_ms=_time_auto(torch, fn),
+                         plain_ms=_time_auto(torch, plain, most=5),
+                         bound_ms=bound[0], bound_by=bound[1],
+                         library_ms=library_ms,
+                         launches=getattr(attn, kernel).launches - before)
+                log("kernel " + " ".join(f"{k_}={v_}" for k_, v_ in
+                                         r.items()))
+                return r
+
+            lib_fwd = _time_auto(torch, sdpa)
+            ref_out, ref_lse = attn.flash_fwd_reference(q, k, v, causal,
+                                                        scale)
+            if "fwd" in passes:
+                tol = TOLERANCE[dname]
+                out, lse = attn.flash_fwd(q, k, v, causal, scale)
+                out2, _ = attn.flash_fwd(q, k, v, causal, scale,
+                                         with_lse=False)
+                torch.cuda.synchronize()
+                err = _close(torch, f"flash_fwd {name}/{dname}",
+                             (out, lse, out2), (ref_out, ref_lse, ref_out),
+                             tol)
+                rows.append(row(
+                    "flash_fwd", name, err,
+                    lambda: attn.flash_fwd(q, k, v, causal, scale),
+                    lambda: attn.flash_fwd_reference(q, k, v, causal,
+                                                     scale),
+                    _flash_bound(dims, causal, dname, 2, ("q", "kv", "kv"),
+                                 ("q", "rows")), lib_fwd))
+                if name == "train":
+                    rows.append(row(
+                        "flash_fwd", name + "_nolse", err,
+                        lambda: attn.flash_fwd(q, k, v, causal, scale,
+                                               with_lse=False),
+                        lambda: attn.flash_fwd_reference(
+                            q, k, v, causal, scale, with_lse=False),
+                        _flash_bound(dims, causal, dname, 2,
+                                     ("q", "kv", "kv"), ("q",)), lib_fwd))
+            for bwd in (p for p in passes if p.startswith("bwd")):
+                tol = GRAD_TOLERANCE[dname]
+                case = name + "_" + bwd
+                dout = randn(b, sq, h, 128)
+                delta = (dout.float() * ref_out.float()).sum(-1).transpose(
+                    1, 2)
+                if bwd == "bwd_glse":
+                    delta = delta - randn(b, h, sq, dt=torch.float32)
+                delta = delta.contiguous()
+                args = (q, k, v, dout, ref_lse, delta, causal, scale)
+                dq = attn.flash_bwd_dq(*args)
+                dk, dv = attn.flash_bwd_dkv(*args)
+                torch.cuda.synchronize()
+                err_dq = _close(torch, f"flash_bwd_dq {case}/{dname}", (dq,),
+                                (attn.flash_bwd_dq_reference(*args),), tol)
+                err_dkv = _close(torch, f"flash_bwd_dkv {case}/{dname}",
+                                 (dk, dv),
+                                 attn.flash_bwd_dkv_reference(*args), tol)
+                g_in = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+                dout_t = dout.transpose(1, 2).contiguous()
+
+                def sdpa_fwd_bwd():
+                    sdpa(*g_in).backward(dout_t)
+
+                lib_bwd = _time_auto(torch, sdpa_fwd_bwd) - lib_fwd
+                rin = ("q", "kv", "kv", "q", "rows", "rows")
+                rows.append(row(
+                    "flash_bwd_dq", case, err_dq,
+                    lambda: attn.flash_bwd_dq(*args),
+                    lambda: attn.flash_bwd_dq_reference(*args),
+                    _flash_bound(dims, causal, dname, 3, rin, ("q",)),
+                    lib_bwd))
+                rows.append(row(
+                    "flash_bwd_dkv", case, err_dkv,
+                    lambda: attn.flash_bwd_dkv(*args),
+                    lambda: attn.flash_bwd_dkv_reference(*args),
+                    _flash_bound(dims, causal, dname, 4, rin, ("kv", "kv")),
+                    lib_bwd))
+                del g_in, dout_t, dq, dk, dv
+            del q, k, v, qt, kt, vt, ref_out, ref_lse
+            torch.cuda.empty_cache()
+    return rows
 
 
 def _prompts(n_tokens, vocab, seed):
@@ -732,37 +935,251 @@ def phase_identity(torch):
     torch.cuda.empty_cache()
 
 
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def _bench_train_config(torch, **kw):
+    """The JAX package's bench training configuration (its bench.py,
+    `main`): ~0.92 B parameters, bf16, flash attention, "dots" remat."""
+    from ray_tpu_torch.models import llama
+
+    base = dict(vocab_size=32000, d_model=2048, n_layers=14, n_heads=16,
+                n_kv_heads=8, d_ff=7168, max_seq=2048, remat_policy="dots",
+                attention_impl="flash", dtype=torch.bfloat16)
+    base.update(kw)
+    return llama.LlamaConfig(**base)
+
+
+def _flash_counts():
+    from ray_tpu_torch.ops import attention as attn
+
+    return {k: getattr(attn, k).launches for k in FLASH_KERNELS}
+
+
+def _train_run(torch, config, batch, n_warm, n_timed, per_step=None):
+    """Train `config` from SEED weights on one seeded batch with the
+    bench's AdamW: flash launch counts at 0 just before the first step,
+    read after each. Returns the run's numbers and (step, state, tokens)
+    for a profiled step."""
+    from ray_tpu_torch.ops import attention as attn
+    from ray_tpu_torch.train.optim import adamw
+    from ray_tpu_torch.train.step import init_state, make_step
+
+    opt = adamw(1e-4, b1=0.9, b2=0.95, mu_dtype=torch.bfloat16)
+    state = init_state(config, opt,
+                       torch.Generator(device="cuda").manual_seed(SEED))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    tokens = torch.randint(0, config.vocab_size,
+                           (batch, config.max_seq + 1), generator=gen,
+                           device="cuda")
+    step = make_step(config, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in FLASH_KERNELS:
+        getattr(attn, k).launches = 0
+    losses, steps = [], []
+    for i in range(n_warm + n_timed):
+        if i == n_warm:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        before = _flash_counts()
+        state, loss = step(state, tokens)
+        losses.append(loss)
+        steps.append({k: v - before[k] for k, v in _flash_counts().items()})
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / n_timed * 1e3
+    launches = _flash_counts()
+    losses = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if per_step is not None and any(s != per_step for s in steps):
+        raise AssertionError(f"flash launches per step {steps} != "
+                             f"{per_step}")
+    tokens_per_s = batch * config.max_seq / step_ms * 1e3
+    out = dict(batch=batch, seq=config.max_seq, n_layers=config.n_layers,
+               remat_policy=config.remat_policy,
+               attention_impl=config.attention_impl, step_ms=step_ms,
+               tokens_per_s=tokens_per_s,
+               mfu=tokens_per_s * config.flops_per_token(config.max_seq)
+               / PEAK_OPS["bfloat16"],
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               loss_first=losses[0], loss_last=losses[-1],
+               launches=launches, launches_per_step=steps[-1],
+               warmup_steps=n_warm, timed_steps=n_timed)
+    log(f"train {config.attention_impl}/{config.remat_policy} batch "
+        f"{batch} x {config.max_seq}, {config.n_layers} layers: "
+        f"{step_ms:.2f} ms/step ({n_timed} timed after {n_warm}), "
+        f"{tokens_per_s:.0f} tokens/s, MFU {out['mfu']:.2%} of 989 "
+        f"TFLOP/s, peak {out['peak_mem_gib']:.2f} GiB, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, flash launches per step "
+        f"{steps[-1]}")
+    return out, (step, state, tokens)
+
+
+def _profile_train_step(torch, step, state, tokens, step_ms):
+    """One step under torch.profiler: device-busy share of the timed
+    step's wall, each flash kernel's and the GEMMs' share of device
+    time, the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, tokens)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    total_us = sum(e.self_device_time_total for e in kernels)
+
+    def share(pred):
+        return sum(e.self_device_time_total for e in kernels
+                   if pred(e.key)) / max(total_us, 1e-9)
+
+    shares = {k: share(lambda key, k=k: f"{k}_kernel" in key)
+              for k in FLASH_KERNELS}
+    shares["gemm"] = share(lambda key: any(s in key.lower() for s in (
+        "gemm", "nvjet", "cutlass", "xmma", "cublas")))
+    shares["elementwise_copy"] = share(
+        lambda key: "elementwise" in key or "copy" in key)
+    shares["reduce"] = share(lambda key: "reduce" in key)
+    device_ms = total_us / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    top = [(e.key[:70], round(e.self_device_time_total / 1e3, 3), e.count)
+           for e in top]
+    log(f"train step profile: device busy {device_ms:.2f} ms = "
+        f"{device_ms / step_ms:.1%} of the {step_ms:.2f} ms step; shares of "
+        "device time: " + ", ".join(f"{k} {v:.1%}" for k, v in
+                                    shares.items()))
+    for name, ms, n in top:
+        log(f"  kernel {ms:.3f} ms/step x{n}: {name}")
+    return dict(device_ms=device_ms, busy_share=device_ms / step_ms,
+                shares=shares, top=top)
+
+
+def _train_identity(torch):
+    """fp32, full width, 2 layers, batch 2 x 512: loss and every gradient
+    with flash attention against the reference (TF32 off). Tolerance per
+    leaf: max |flash - reference| <= 1e-4 x max |reference| (fp32 sums in
+    another order)."""
+    import dataclasses
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.train.optim import leaves
+
+    config = _bench_train_config(torch, n_layers=2, max_seq=512,
+                                 dtype=torch.float32)
+    params = llama.init_params(config, torch.Generator(
+        device="cuda").manual_seed(SEED + 3))
+    for _, p in leaves(params):
+        p.requires_grad_(True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    batch = {"tokens": torch.randint(0, config.vocab_size, (2, 513),
+                                     generator=gen, device="cuda")}
+    got = {}
+    for impl in ("flash", "reference"):
+        cfg = dataclasses.replace(config, attention_impl=impl)
+        loss, _ = llama.loss_fn(params, batch, cfg)
+        grads = torch.autograd.grad(loss, [p for _, p in leaves(params)])
+        got[impl] = (loss.item(), grads)
+    (lf, gf), (lr, gr) = got["flash"], got["reference"]
+    worst = 0.0
+    for (path, _), a, b in zip(leaves(params), gf, gr):
+        rel = ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+        worst = max(worst, rel)
+        if rel > 1e-4:
+            raise AssertionError(f"train identity: d{path} flash vs "
+                                 f"reference rel err {rel}")
+    if abs(lf - lr) > 1e-5 * abs(lr):
+        raise AssertionError(f"train identity: loss {lf} != {lr}")
+    log(f"train identity: fp32 full width, 2 layers, batch 2 x 512: loss "
+        f"flash {lf:.7f} vs reference {lr:.7f}; every gradient within "
+        f"{worst:.2e} x its leaf's max (tolerance 1e-4)")
+    return dict(loss_flash=lf, loss_reference=lr, worst_grad_rel=worst)
+
+
+def phase_train(torch):
+    import dataclasses
+
+    _SHARED.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    config = _bench_train_config(torch)
+    L = config.n_layers
+    bench, (step, state, tokens) = _train_run(
+        torch, config, 4, 2, 10,
+        per_step={"flash_fwd": 2 * L, "flash_bwd_dq": L,
+                  "flash_bwd_dkv": L})
+    if not bench["loss_last"] < bench["loss_first"]:
+        raise AssertionError(f"loss did not fall: {bench}")
+    bench["profile"] = _profile_train_step(torch, step, state, tokens,
+                                           bench["step_ms"])
+    del step, state, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    yardstick, _ = _train_run(
+        torch, dataclasses.replace(config, attention_impl="reference"), 4,
+        2, 10, per_step={k: 0 for k in FLASH_KERNELS})
+    gc.collect()
+    torch.cuda.empty_cache()
+    long_ctx, _ = _train_run(
+        torch, dataclasses.replace(config, max_seq=16384,
+                                   remat_policy="flash"), 1, 1, 2,
+        per_step={"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L})
+    gc.collect()
+    torch.cuda.empty_cache()
+    RESULTS["train"] = dict(bench=bench, reference=yardstick,
+                            long_context=long_ctx,
+                            identity=_train_identity(torch))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def kernels_line() -> dict:
     """The machine-readable kernel summary, one entry per kernel: headline
     numbers from its bf16 case at the main path's own shape (K5: the
-    server tick, tick_136; K6: the split decode, split_decode), worst
-    error over all its cases. `launches` is the count of the run that
-    drives the kernel's path (server phase for K5, split phase for K6;
-    counts reset to 0 just before each run), null when that phase did not
-    run."""
+    server tick, tick_136; K6: the split decode, split_decode; the flash
+    kernels: the train step's shape, train and train_bwd), worst error
+    over all its cases. `launches` is the count of the run that drives the
+    kernel's path (server phase for K5, split phase for K6, the bench
+    train run for the flash kernels; counts reset to 0 just before each
+    run), null when that phase did not run."""
     rows = RESULTS.get("kernel_cases", [])
+    train = RESULTS.get("train", {}).get("bench", {}).get("launches", {})
 
-    def entry(kernel, name, replaces, head_case, launches):
+    def entry(kernel, name, source, replaces, head_case, launches):
         mine = [r for r in rows if r["kernel"] == kernel]
         head = next((r for r in mine if r["case"] == head_case
                      and r["dtype"] == "bfloat16"), {})
         return {
             "name": name, "route": "cuda",
-            "source": "ray_tpu_torch/ops/csrc/paged_attention.cu",
+            "source": f"ray_tpu_torch/ops/csrc/{source}",
             "replaces": replaces, "launches": launches,
             "max_abs_err": max((r["max_abs_err"] for r in mine),
                                default=None),
             "ms": head.get("kernel_ms"), "plain_ms": head.get("plain_ms"),
             "bound_ms": head.get("bound_ms"),
-            "bound_by": head.get("bound_by"), "library_ms": None}
+            "bound_by": head.get("bound_by"),
+            "library_ms": head.get("library_ms")}
 
+    attn = "ray_tpu/ops/attention.py"
     return {"kernels": [
-        entry("K5", "ragged_paged_attention_unified",
+        entry("K5", "ragged_paged_attention_unified", "paged_attention.cu",
               "ray_tpu/ops/paged_attention.py:177", "tick_136",
               RESULTS.get("server", {}).get("k5_launches")),
-        entry("K6", "ragged_paged_attention",
+        entry("K6", "ragged_paged_attention", "paged_attention.cu",
               "ray_tpu/ops/paged_attention.py:69", "split_decode",
-              RESULTS.get("split", {}).get("k6_launches"))]}
+              RESULTS.get("split", {}).get("k6_launches")),
+        entry("flash_fwd", "flash_fwd", "flash_attention.cu",
+              f"{attn}:520 (K1), {attn}:553 (K2)", "train",
+              train.get("flash_fwd")),
+        entry("flash_bwd_dq", "flash_bwd_dq", "flash_attention.cu",
+              f"{attn}:616 (K3 dQ), {attn}:738 (K4 dQ)", "train_bwd",
+              train.get("flash_bwd_dq")),
+        entry("flash_bwd_dkv", "flash_bwd_dkv", "flash_attention.cu",
+              f"{attn}:634 (K3 dK/dV), {attn}:771 (K4 dK/dV)", "train_bwd",
+              train.get("flash_bwd_dkv"))]}
 
 
 def main(argv=None) -> int:

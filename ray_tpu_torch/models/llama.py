@@ -5,22 +5,28 @@ layouts — `layers[name]` is `(n_layers, in, out)` — so weights convert
 one-to-one from the JAX pytree (`params_from_numpy`) and the layer stack
 is a Python loop over the leading axis instead of `lax.scan`.
 
-`forward` is the naive reference (dense attention over the whole
-sequence, no KV cache): the tests and `chip_smoke.py` decode against it.
-The serving path runs through llm/model_runner.py instead.
+`forward` is the naive full-sequence forward (no KV cache): the tests
+and `chip_smoke.py` decode against it, and `loss_fn` trains through it.
+The serving path runs through llm/model_runner.py instead. While grad is
+enabled, `backbone` wraps each layer in activation checkpointing
+(`remat`, `remat_policy`); under `torch.no_grad` it runs the layers
+as they are.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict
+from functools import partial
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ray_tpu_torch.ops import resolve_device
-from ray_tpu_torch.ops.attention import attention
+from ray_tpu_torch.ops.attention import FLASH_FWD_OP, attention
 from ray_tpu_torch.ops.layers import (apply_rope, rms_norm, rope_frequencies,
                                       swiglu)
 
@@ -40,7 +46,15 @@ class LlamaConfig:
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
-    attention_impl: str = "auto"   # reference (flash: training slice)
+    remat: bool = True
+    # "full": recompute everything in backward. "dots": save the outputs
+    # of the projections (aten.mm, the counterpart of JAX's
+    # dots_with_no_batch_dims_saveable; the reference attention's bmm has
+    # a batch dim and is recomputed). "flash": save only the flash
+    # forward op's out and LSE, so the backward does not run the forward
+    # kernel again (the long-context policy).
+    remat_policy: str = "full"     # full | dots | flash
+    attention_impl: str = "auto"   # reference | flash
 
     @property
     def head_dim(self) -> int:
@@ -68,6 +82,12 @@ class LlamaConfig:
         mlp = 3 * d * f
         per_layer = attn + mlp + 2 * d
         return v * d + L * per_layer + d + d * v
+
+    def flops_per_token(self, seq: int) -> float:
+        """Training FLOPs/token (fwd+bwd ~= 6*N + attention term)."""
+        n = self.num_params() - self.vocab_size * self.d_model
+        attn_flops = 12 * self.n_layers * self.d_model * seq
+        return 6.0 * n + attn_flops
 
 
 # ---------------------------------------------------------------- parameters
@@ -164,17 +184,53 @@ def _layer(config: LlamaConfig, x, p, cos, sin):
     return x + swiglu(h @ p["w_gate"], h @ p["w_up"]) @ p["w_down"]
 
 
+def _save_dots(ctx, func, *args, **kwargs):
+    if func is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _save_flash(ctx, func, *args, **kwargs):
+    if func is FLASH_FWD_OP:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_REMAT_POLICIES = {"full": None, "dots": _save_dots, "flash": _save_flash}
+
+
+def _checkpointed(config: LlamaConfig):
+    """The layer function under the config's remat policy."""
+    if config.remat_policy not in _REMAT_POLICIES:
+        raise ValueError(f"remat_policy must be 'full', 'dots' or 'flash', "
+                         f"got {config.remat_policy!r}")
+    policy = _REMAT_POLICIES[config.remat_policy]
+    kw = {} if policy is None else {"context_fn": partial(
+        create_selective_checkpoint_contexts, policy)}
+
+    def run(x, p, cos, sin):
+        return checkpoint(_layer, config, x, p, cos, sin,
+                          use_reentrant=False, **kw)
+    return run
+
+
 def backbone(params: Dict, tokens: torch.Tensor,
              config: LlamaConfig) -> torch.Tensor:
     """tokens: (b, s) int -> final-norm hidden states (b, s, d) in
-    config.dtype."""
+    config.dtype. Layers run under activation checkpointing only when
+    config.remat is set and grad is enabled."""
     dev = params["embed"].device
     cos, sin = rope_frequencies(config.head_dim, config.max_seq,
                                 config.rope_theta, device=dev)
     x = params["embed"][tokens.to(dev)].to(config.dtype)
+    layer = partial(_layer, config)
+    if config.remat and torch.is_grad_enabled():
+        layer = _checkpointed(config)
+    # unbind: the backward stacks the L per-layer gradients of a stacked
+    # weight once, where indexing would add L full-size gradients.
+    stacked = {k: params["layers"][k].unbind(0) for k in LAYER_KEYS}
     for li in range(config.n_layers):
-        p = {k: params["layers"][k][li] for k in LAYER_KEYS}
-        x = _layer(config, x, p, cos, sin)
+        x = layer(x, {k: stacked[k][li] for k in LAYER_KEYS}, cos, sin)
     return rms_norm(x, params["final_norm"], config.norm_eps)
 
 
@@ -183,3 +239,31 @@ def forward(params: Dict, tokens: torch.Tensor,
     """tokens: (b, s) int -> logits (b, s, vocab) float32."""
     x = backbone(params, tokens, config)
     return (x @ params["lm_head"]).float()
+
+
+def next_token_ce(logits: torch.Tensor, targets: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross entropy; mask (same shape as targets)
+    optional."""
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = logp.gather(-1, targets[..., None].long())[..., 0]
+    if mask is not None:
+        mask = mask.float()
+        return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return -ll.mean()
+
+
+def loss_fn(params: Dict, batch: Dict[str, torch.Tensor],
+            config: LlamaConfig) -> Tuple[torch.Tensor, Dict]:
+    """batch: {"tokens": (b, s+1) int, optional "mask": (b, s+1)} ->
+    (next-token cross entropy, {"loss", "tokens"})."""
+    tokens = batch["tokens"]
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    logits = forward(params, inputs, config)
+    mask = batch.get("mask")
+    loss = next_token_ce(logits, targets.to(logits.device),
+                         mask[:, 1:].to(logits.device)
+                         if mask is not None else None)
+    return loss, {"loss": loss,
+                  "tokens": torch.tensor(float(targets.numel()),
+                                         dtype=torch.float32)}

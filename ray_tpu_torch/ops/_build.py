@@ -95,8 +95,15 @@ def _bind(lib):
     fn.restype = i
     lib.rpa_workspace_bytes.argtypes = [i] * 7
     lib.rpa_workspace_bytes.restype = ctypes.c_longlong
-    lib.rpa_error_string.argtypes = [i]
-    lib.rpa_error_string.restype = ctypes.c_char_p
+    # flash launchers: pointers, then (b, sq, skv, h, hkv, d, causal),
+    # scale, is_bf16, stream.
+    for name, n_ptrs in (("flash_fwd_launch", 5), ("flash_bwd_dq_launch", 7),
+                         ("flash_bwd_dkv_launch", 8)):
+        fn = getattr(lib, name)
+        fn.argtypes = [p] * n_ptrs + [i] * 7 + [ctypes.c_float, i, p]
+        fn.restype = i
+    lib.cuda_error_string.argtypes = [i]
+    lib.cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -120,5 +127,5 @@ def load_library():
 def check(code: int, what: str) -> None:
     """Raise for a non-zero cudaError_t returned by a launcher."""
     if code != 0:
-        msg = _lib.rpa_error_string(code).decode()
+        msg = _lib.cuda_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

@@ -426,7 +426,8 @@ cudaError_t dispatch(const Rows& rows, int n_rows, int hd, int is_bf16,
 
 }  // namespace
 
-extern "C" const char* rpa_error_string(int code) {
+// The message of a cudaError_t returned by any launcher of the library.
+extern "C" const char* cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

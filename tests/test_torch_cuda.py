@@ -2,11 +2,14 @@
 
 Run on a machine with an NVIDIA GPU:
     python -m pytest tests/test_torch_cuda.py -q -m cuda
-The K5 and K6 kernels (csrc/paged_attention.cu) must agree with their
-plain PyTorch versions on the same inputs, fp32 rtol = atol = 1e-5, bf16
-2e-2, and count their launches; the unified engine goes through K5 on
-every tick, the split engine through K6 on every runner step, and its
-decode dispatch never synchronises with the device.
+The K5 and K6 kernels (csrc/paged_attention.cu) and the three flash
+kernels (csrc/flash_attention.cu) must agree with their plain PyTorch
+versions on the same inputs, fp32 rtol = atol = 1e-5 (gradients 1e-4),
+bf16 2e-2, and count their launches; the unified engine goes through K5
+on every tick, the split engine through K6 on every runner step, and its
+decode dispatch never synchronises with the device; a train step
+launches the flash kernels once or twice per layer, as its remat policy
+says.
 """
 
 import numpy as np
@@ -156,3 +159,78 @@ def test_split_engine_launches_rect_kernel_per_step(cuda):
     assert steps and pa.ragged_paged_attention.launches == \
         config.n_layers * len(steps)
     assert pa.ragged_paged_attention_unified.launches == 0
+
+
+@pytest.mark.parametrize("dtype,tol,grad_tol", [(torch.float32, 1e-5, 1e-4),
+                                                (torch.bfloat16, 2e-2, 2e-2)])
+@pytest.mark.parametrize("causal,sq,skv", [(True, 100, 100),
+                                           (True, 70, 130),
+                                           (False, 90, 60)])
+def test_flash_kernels_match_plain_versions(cuda, dtype, tol, grad_tol,
+                                            causal, sq, skv):
+    """flash_fwd (with and without LSE), flash_bwd_dq and flash_bwd_dkv
+    against their plain versions: ragged tails (not multiples of the
+    kernels' 64-row tiles), GQA n_rep 2, sq != skv both ways."""
+    from ray_tpu_torch.ops import attention as ta
+
+    rng = np.random.default_rng(3)
+    f = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s, dtype=np.float32)).to("cuda", dtype)
+    q, k, v, dout = f(2, sq, 4, 64), f(2, skv, 2, 64), f(2, skv, 2, 64), \
+        f(2, sq, 4, 64)
+    scale = 0.125
+    before = {n: getattr(ta, n).launches
+              for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    out, lse = ta.flash_fwd(q, k, v, causal, scale)
+    out_nolse, empty = ta.flash_fwd(q, k, v, causal, scale, with_lse=False)
+    ref_out, ref_lse = ta.flash_fwd_reference(q, k, v, causal, scale)
+    delta = ((dout.float() * ref_out.float()).sum(-1).transpose(1, 2)
+             - torch.from_numpy(rng.standard_normal(
+                 (2, 4, sq), dtype=np.float32)).cuda()).contiguous()
+    args = (q, k, v, dout, ref_lse, delta, causal, scale)
+    dq = ta.flash_bwd_dq(*args)
+    dk, dv = ta.flash_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    assert {n: getattr(ta, n).launches - b for n, b in before.items()} == \
+        {"flash_fwd": 2, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    assert empty.numel() == 0 and torch.equal(out_nolse, out)
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=tol,
+                               atol=tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=tol, atol=tol)
+    for got, want in zip((dq, dk, dv),
+                         (ta.flash_bwd_dq_reference(*args),
+                          *ta.flash_bwd_dkv_reference(*args))):
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), rtol=grad_tol,
+                                   atol=grad_tol)
+
+
+@pytest.mark.parametrize("policy,fwd_per_layer", [("dots", 2), ("flash", 1)])
+def test_train_step_launches_flash_kernels_per_layer(cuda, policy,
+                                                     fwd_per_layer):
+    """A train step with flash attention launches the forward kernel 2 L
+    times under "dots" and L times under "flash", dQ and dK/dV L times;
+    the loss falls on a repeated batch."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops import attention as ta
+    from ray_tpu_torch.train.optim import adamw
+    from ray_tpu_torch.train.step import init_state, make_step
+
+    config = llama.LlamaConfig.tiny(d_model=256, n_heads=2, n_kv_heads=1,
+                                    max_seq=64, attention_impl="flash",
+                                    remat_policy=policy,
+                                    dtype=torch.bfloat16)
+    opt = adamw(1e-3, b1=0.9, b2=0.95, mu_dtype=torch.bfloat16)
+    state = init_state(config, opt, torch.Generator("cuda").manual_seed(0))
+    step = make_step(config, opt)
+    tokens = torch.randint(0, config.vocab_size, (2, 65), device="cuda")
+    losses = []
+    for _ in range(3):
+        ta.flash_fwd.launches = ta.flash_bwd_dq.launches = 0
+        ta.flash_bwd_dkv.launches = 0
+        state, loss = step(state, tokens)
+        losses.append(loss.item())
+        L = config.n_layers
+        assert (ta.flash_fwd.launches, ta.flash_bwd_dq.launches,
+                ta.flash_bwd_dkv.launches) == (fwd_per_layer * L, L, L)
+    assert losses[-1] < losses[0]

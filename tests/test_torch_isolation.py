@@ -76,3 +76,20 @@ def test_entry_points_raise_without_cuda():
     engine = build_engine(LLMConfig(model_config=cfg.model_config,
                                     device="cpu"))
     assert engine.runner.device.type == "cpu"
+
+
+def test_train_modules_are_covered_and_refuse_a_missing_card():
+    names = [name for name, _ in _modules()]
+    assert {"ray_tpu_torch.train.optim", "ray_tpu_torch.train.step"} <= \
+        set(names)
+    if torch.cuda.is_available():
+        pytest.skip("CUDA present: the default device is valid here")
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.train.optim import adamw
+    from ray_tpu_torch.train.step import init_state
+
+    config = llama.LlamaConfig.tiny(dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_state(config, adamw(1e-4), torch.Generator())
+    state = init_state(config, adamw(1e-4), torch.Generator(), device="cpu")
+    assert state["params"]["embed"].device.type == "cpu"
