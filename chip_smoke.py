@@ -5,11 +5,14 @@
     python3 chip_smoke.py --phases device,build,kernel
     python3 chip_smoke.py --phases device,build,kernel,split
     python3 chip_smoke.py --phases device,build,kernel,train
+    python3 chip_smoke.py --phases device --turns parent,.,.,parent
 
 Phases, in order; any failure raises and the exit code is non-zero:
   1. device    nvidia-smi name + power limit, torch.cuda device name; TF32
                off for matmuls and cuDNN.
-  2. build     nvcc builds ray_tpu_torch/ops/csrc/*.cu (ops/_build.py).
+  2. build     nvcc builds ray_tpu_torch/ops/csrc/*.cu (ops/_build.py);
+               prints ptxas's registers and spills per kernel and the bf16
+               flash forward's dynamic shared memory.
   3. kernel    the K5 kernel (unified ragged paged attention) and the K6
                kernel (rectangular ragged paged attention) against their
                plain PyTorch versions on the card at Llama-3-8B attention
@@ -59,6 +62,11 @@ causal sq < skv (512/1024), non-causal (1024/1536), and the long regimes
 (forward 16384, backward 8192), timing each beside
 `scaled_dot_product_attention` (library_ms; the port never calls it).
 fp32 tolerance 1e-5 for out/LSE and 1e-4 for gradients, bf16 2e-2.
+`--turns A,B,...` then times the bf16 flash forward of each listed tree's
+ray_tpu_torch (a directory holding the package, e.g. a parent commit's
+copy unpacked in a git-ignored directory), one child process per entry,
+in the order given, at the train, gqa4 and long_fwd shapes: run parent,
+change, change, parent to compare two versions on one card.
 Prints a `{"kernels": [...]}` line, then, last, the device line
 `{"ok": true, "device": {...}}`; `--out FILE` also writes every result as
 JSON. Imports nothing of jax or ray_tpu.
@@ -116,22 +124,30 @@ def phase_build():
     from ray_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.load_library()
+    lib = _build.load_library()
     wall = time.perf_counter() - t0
     name = "?"
     for line in _build.build_log.splitlines():
         entry = re.search(r"entry function '(\S+)'", line)
         if entry:
             # _ZN..<len>flash_fwd_kernelI13__nv_bfloat16Li128EE... ->
-            # flash_fwd_kernel<bf16,128>
+            # flash_fwd_kernel<bf16,128>; flash_fwd_wgmma_kernel is bf16 only
             m = re.search(r"\d((?:flash|rua|rpa)[a-z_]*?kernel)I(\w*?)"
                           r"(?:Li(\d+))?E", entry[1])
-            name = (f"{m[1]}<{'bf16' if 'bfloat' in m[2] else 'f32'}"
-                    f"{',' + m[3] if m[3] else ''}>" if m else entry[1][:60])
-        elif "registers" in line or "spill" in line or "error" in line:
+            if m:
+                dt = "bf16" if "bfloat" in m[2] or "wgmma" in m[1] else "f32"
+                name = f"{m[1]}<{dt}{',' + m[3] if m[3] else ''}>"
+            else:
+                name = entry[1][:60]
+        elif any(w in line for w in ("registers", "spill", "error",
+                                     "warning")):
             log(f"  ptxas {name}: {line.strip()}")
+    smem = {d: lib.flash_fwd_smem_bytes(d, 1) for d in (64, 128)}
+    log("  flash_fwd_wgmma_kernel dynamic shared memory: " + ", ".join(
+        f"d={d} {b} bytes" for d, b in smem.items()))
     log(f"build: {wall:.2f} s (nvcc {_build.build_seconds or 0:.2f} s)")
     RESULTS["build_s"] = wall
+    RESULTS["flash_fwd_smem_bytes"] = smem
 
 
 def _time_ms(torch, fn, iters: int) -> float:
@@ -374,6 +390,20 @@ def _close(torch, label, got, ref, tol):
     return err
 
 
+def _flash_inputs(torch, name, dims, dtype):
+    """Seeded q, k, v of a FLASH_CASES row (head dim 128) and the case's
+    generator, as `randn(*shape, dt=dtype)`."""
+    b, sq, skv, h, hkv = dims
+    gen = torch.Generator(device="cuda").manual_seed(
+        SEED + zlib.crc32(name.encode()))
+
+    def randn(*shape, dt=dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+    return (randn, randn(b, sq, h, 128), randn(b, skv, hkv, 128),
+            randn(b, skv, hkv, 128))
+
+
 def _flash_cases(torch):
     from ray_tpu_torch.ops import attention as attn
 
@@ -383,14 +413,7 @@ def _flash_cases(torch):
         dname = str(dtype).split(".")[1]
         for name, dims, causal, passes in FLASH_CASES:
             b, sq, skv, h, hkv = dims
-            gen = torch.Generator(device="cuda").manual_seed(
-                SEED + zlib.crc32(name.encode()))
-
-            def randn(*shape, dt=dtype):
-                return torch.randn(shape, generator=gen, device="cuda").to(dt)
-
-            q, k, v = randn(b, sq, h, 128), randn(b, skv, hkv, 128), \
-                randn(b, skv, hkv, 128)
+            randn, q, k, v = _flash_inputs(torch, name, dims, dtype)
             scale = 1.0 / math.sqrt(128)
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
 
@@ -481,6 +504,62 @@ def _flash_cases(torch):
             del q, k, v, qt, kt, vt, ref_out, ref_lse
             torch.cuda.empty_cache()
     return rows
+
+
+# Cases timed in turns against another tree's ray_tpu_torch (--turns).
+TURN_CASES = ("train", "gqa4", "long_fwd")
+
+
+def _fwd_times(torch):
+    """Child of --turns: the bf16 flash forward (with LSE) of whichever
+    ray_tpu_torch this process imports, at TURN_CASES: CUDA-event ms and
+    the worst error against its plain version. Prints one TURN line."""
+    from ray_tpu_torch.ops import attention as attn
+    from ray_tpu_torch.ops import _build
+
+    _build.load_library()
+    res = {"package": os.path.relpath(os.path.dirname(os.path.dirname(
+        os.path.dirname(attn.__file__))))}
+    for name, dims, causal, _ in FLASH_CASES:
+        if name not in TURN_CASES:
+            continue
+        _, q, k, v = _flash_inputs(torch, name, dims, torch.bfloat16)
+        scale = 1.0 / math.sqrt(128)
+        got = attn.flash_fwd(q, k, v, causal, scale)
+        torch.cuda.synchronize()
+        err = _close(torch, f"turn {name}", got,
+                     attn.flash_fwd_reference(q, k, v, causal, scale),
+                     TOLERANCE["bfloat16"])
+        res[name] = dict(ms=_time_auto(
+            torch, lambda: attn.flash_fwd(q, k, v, causal, scale),
+            budget_s=1.0, most=200), max_abs_err=err)
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    print("TURN " + json.dumps(res), flush=True)
+
+
+def run_turns(trees):
+    """The bf16 flash forward of each tree in `trees` (a directory holding
+    a ray_tpu_torch package, e.g. a parent commit's unpacked copy), one
+    child process each, in the order given (parent, change, change,
+    parent): kernel ms per TURN_CASES case."""
+    here = os.path.abspath(__file__)
+    rows = []
+    for tree in trees:
+        proc = subprocess.run(
+            [sys.executable, here, "--phases", "device", "--fwd-times-in",
+             tree], capture_output=True, text=True, timeout=900)
+        line = next((x for x in proc.stdout.splitlines()
+                     if x.startswith("TURN ")), None)
+        if proc.returncode != 0 or line is None:
+            raise RuntimeError(f"turn in {tree} failed:\n{proc.stdout}"
+                               f"\n{proc.stderr[-4000:]}")
+        row = json.loads(line[5:])
+        rows.append(row)
+        log(f"turn {tree}: " + ", ".join(
+            f"{c} {row[c]['ms']:.4f} ms (err {row[c]['max_abs_err']:.3g})"
+            for c in TURN_CASES))
+    RESULTS["turns"] = rows
 
 
 def _prompts(n_tokens, vocab, seed):
@@ -1037,7 +1116,8 @@ def _profile_train_step(torch, step, state, tokens, step_ms):
         return sum(e.self_device_time_total for e in kernels
                    if pred(e.key)) / max(total_us, 1e-9)
 
-    shares = {k: share(lambda key, k=k: f"{k}_kernel" in key)
+    shares = {k: share(lambda key, k=k: f"{k}_kernel" in key
+                       or f"{k}_wgmma_kernel" in key)
               for k in FLASH_KERNELS}
     shares["gemm"] = share(lambda key: any(s in key.lower() for s in (
         "gemm", "nvjet", "cutlass", "xmma", "cublas")))
@@ -1187,7 +1267,13 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
                     help="comma-separated subset of " + ",".join(ALL_PHASES))
     ap.add_argument("--out", help="also write all results as JSON here")
+    ap.add_argument("--turns", help="comma-separated trees, each holding "
+                    "a ray_tpu_torch package: time their bf16 flash "
+                    "forward at " + "/".join(TURN_CASES) + " in this order")
+    ap.add_argument("--fwd-times-in", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.fwd_times_in:
+        sys.path.insert(0, os.path.abspath(args.fwd_times_in))
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(ALL_PHASES)
     if unknown:
@@ -1212,6 +1298,11 @@ def main(argv=None) -> int:
         else:
             fn(torch)
         log(f"phase {name}: ok in {time.perf_counter() - t0:.1f} s")
+    if args.fwd_times_in:
+        _fwd_times(torch)
+        return 0
+    if args.turns:
+        run_turns(args.turns.split(","))
     RESULTS["phases"] = phases
     RESULTS["wall_s"] = time.perf_counter() - t_all
     if args.out:

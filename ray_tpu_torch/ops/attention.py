@@ -222,10 +222,19 @@ def flash_bwd_dkv_reference(q, k, v, dout, lse, delta, causal: bool,
 
 # ---------------------------------------------------------------- wrappers
 
+def tma_aligned(data_ptr: int, strides, element_size: int) -> bool:
+    """TMA's rule for a tensor it copies from (the bf16 forward reads q, k
+    and v through tensor maps; every flash kernel loads 16 bytes a
+    thread): a 16-byte aligned base, and every stride but the innermost a
+    multiple of 16 bytes. `strides` are in elements, outermost first."""
+    return data_ptr % 16 == 0 and all(
+        st * element_size % 16 == 0 for st in tuple(strides)[:-1])
+
+
 def _check_kernel_args(q, k, v, *rest):
     """What the kernels take: q, k, v and the q-shaped `rest` in one of
-    bf16/fp32, one CUDA device, contiguous and 16-byte aligned (the
-    kernels load 16 bytes a thread); head dim 64 or 128; hkv | h."""
+    bf16/fp32, one CUDA device, contiguous and TMA-aligned (`tma_aligned`);
+    head dim 64 or 128; hkv | h."""
     b, sq, h, d = q.shape
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"q dtype {q.dtype}: kernel takes bfloat16/float32")
@@ -241,9 +250,10 @@ def _check_kernel_args(q, k, v, *rest):
     for t in (q, k, v, *rest):
         if t.device != q.device:
             raise ValueError(f"tensors on {t.device} and {q.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("flash kernels take contiguous, 16-byte "
-                             "aligned tensors")
+        if not t.is_contiguous() or not tma_aligned(
+                t.data_ptr(), t.stride(), t.element_size()):
+            raise ValueError("flash kernels take contiguous tensors with a "
+                             "16-byte aligned base and 16-byte strides")
 
 
 def _check_rows(q, *rows):
@@ -281,7 +291,8 @@ def flash_fwd(q, k, v, causal: bool, scale: float, block_q: int = 512,
               block_k: int = 512, with_lse: bool = True):
     """Flash forward: (out (b, sq, h, d) in q's dtype, lse (b, h, sq) fp32,
     empty when with_lse is False). CUDA tensors launch the flash_fwd
-    kernel (counted in `.launches`); CPU tensors run the plain version."""
+    kernel (counted in `.launches`): bf16 the wgmma + TMA kernel, fp32 the
+    CUDA-core one; CPU tensors run the plain version."""
     if _device_kind(q) == "cpu":
         return flash_fwd_reference(q, k, v, causal, scale, block_q, block_k,
                                    with_lse)
@@ -428,8 +439,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the backward). q: (b, sq, h, d), k/v: (b, skv, hkv, d). With
     return_lse=True also returns the (b, h, sq) logsumexp, whose
     cotangent folds into the backward's delta. `block_q`/`block_k` tile
-    the plain versions; the CUDA kernels keep their own 64-row tiles
-    (results agree up to the order of fp32 sums)."""
+    the plain versions; the CUDA kernels keep their own tiles (128 rows
+    and keys for the bf16 forward, 64 otherwise; results agree up to the
+    order of fp32 sums)."""
     scale = _flash_prep(q, k, scale)
     out, lse = _flash_fwd_op(q.contiguous(), k.contiguous(), v.contiguous(),
                              causal, scale, block_q, block_k, True)

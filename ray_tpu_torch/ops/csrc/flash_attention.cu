@@ -34,27 +34,91 @@
 // What bounds them on an H100: operations. At the train shape (4, 2048,
 // 16/8, 128) each pass does 2-4 causal (2048 x 2048 x 128) products per
 // (batch, head), ~70-140 GFLOP against ~50-100 MB of reads, far above the
-// ~295 flops per byte at which bf16 tensor cores become the limit. So:
+// ~295 flops per byte at which bf16 tensor cores become the limit.
+//
+// The bf16 forward (flash_fwd_wgmma_kernel, head dims 64 and 128) is built
+// for Hopper's own tensor-core path:
+//   * one CTA = 128 query rows of one (batch, head): two consumer
+//     warpgroups of 64 rows each, plus one producer warpgroup whose first
+//     thread issues every copy; the producer gives up registers
+//     (setmaxnreg.dec 24) and the consumers take them (setmaxnreg.inc 240);
+//   * Q arrives once per CTA and K/V through a ring of 3 stages (a 128-key
+//     K tile and V tile per stage; 224 KB of shared memory at d = 128, one
+//     CTA per SM) by TMA (cp.async.bulk.tensor, 4-d tensor maps over the
+//     public (b, s, h, d) layout, read in place; the K/V maps index the kv
+//     head hi / n_rep). Each stage has a full
+//     and an empty mbarrier: the producer waits on empty, arms full with
+//     expect_tx and issues the copies; consumers wait on full by phase
+//     parity and arrive on empty (one arrival per warp) only after the
+//     wgmma that read the stage has retired (wgmma.wait_group 0). Rows past
+//     sq and keys past skv arrive as zeros (TMA's out-of-bounds fill): the
+//     key mask below still sets them to -1e30, and the epilogue writes
+//     rows < sq only;
+//   * 128-byte swizzle: a box's inner dimension is at most 128 bytes (64
+//     bf16), so a d = 128 row is two boxes and every tile is stored as
+//     64-column halves of (rows x 128 B); each wgmma descriptor addresses
+//     one half (start address, SBO = 1024 B between 8-row groups, layout
+//     B128), and steps of 16 columns inside a half add 32 B to the start
+//     address (the hardware swizzles on the absolute address, so every
+//     tile starts on a 1024-byte boundary);
+//   * S = Q·Kᵀ with wgmma m64n128k16 (A = this warpgroup's Q rows, B = the K
+//     tile, both K-major in shared memory) into fp32 registers. Each warp
+//     of the warpgroup holds 16 rows in the mma.sync accumulator pattern,
+//     so masking (-1e30, top-left causal rule), the online softmax and the
+//     rescaling are the same code as the fp32 path's;
+//   * O += P·V with wgmma m64n{64|128}k16, A = P from registers: two
+//     adjacent n8 chunks of the S accumulator, rounded to bf16x2 in place,
+//     are exactly the register-A fragment of one k16 step, so P never
+//     touches shared memory; B = the V tile, MN-major (the transpose bit),
+//     LBO = the 16 KB between its 64-column halves;
+//   * each consumer warpgroup runs a software pipeline: iteration i issues
+//     S(i) and the delayed O = alpha·O + P(i-1)·V(i-1) as two wgmma groups,
+//     runs the softmax of tile i while the PV product is in flight, and
+//     releases stage i-1 (and overwrites P) only after wait_group 0; so a
+//     stage is held for two iterations, hence the third ring stage;
+//   * ping-pong: named barriers make the two warpgroups take turns to
+//     issue their products, so one's softmax runs under the other's;
+//   * the softmax works in base 2 (running max of logit·log2 e), so each
+//     weight is one FFMA and one ex2.approx.ftz; with __expf the same
+//     kernel took 1.35x as long (PERF.md): the softmax's instructions, not
+//     the products, set the pace;
+//   * wgmma.fence before each product whose registers ordinary code wrote
+//     (the rescaled O, P), and an empty asm on every accumulator register
+//     after wgmma.wait_group so no read of S or O moves above the wait. No
+//     generic-proxy write to shared memory precedes a TMA or wgmma read
+//     (only the mbarrier inits, which fence.mbarrier_init publishes), so no
+//     fence.proxy.async is needed;
+//   * the grid puts the heaviest causal tiles first; out = acc / max(l,
+//     1e-30) in bf16 and the fp32 LSE (or none) go from registers to
+//     global memory for rows < sq;
+//   * cuTensorMapEncodeTiled is a driver-API function: the launcher fetches
+//     it once through cudaGetDriverEntryPoint(ByVersion), so the library
+//     links against the CUDA runtime alone (no -lcuda). TMA needs 16-byte
+//     aligned bases and strides that are multiples of 16 bytes; the Python
+//     wrapper refuses other tensors.
+// fp32 (forward, and every backward pass) keeps the warp-level design:
 //   * a block owns 64 query rows (forward, dQ) or 64 keys (dK/dV) and
 //     stages each K/V (or Q/dO) tile in shared memory ONCE for all of them;
 //     each of its 4 warps owns 16 of those rows;
-//   * bf16 runs the products on the tensor cores, mma.sync m16n8k16 with
-//     fp32 accumulators, fragments loaded with ldmatrix (.trans where the
-//     contraction runs along a tile's rows); the probabilities (and ds) go
-//     through shared memory as bf16 for the second product;
+//   * bf16 backward runs the products on the tensor cores, mma.sync
+//     m16n8k16 with fp32 accumulators, fragments loaded with ldmatrix
+//     (.trans where the contraction runs along a tile's rows); the
+//     probabilities (and ds) go through shared memory as bf16 for the
+//     second product;
 //   * fp32 runs the same tiles and fragment layout on the CUDA cores (FMA),
 //     so the softmax and masking code is shared and fp32 stays exact to
 //     fp32 rounding (no TF32);
 //   * causal blocks skip key tiles above the diagonal (forward, dQ) and q
 //     tiles below it (dK/dV), and the heaviest tiles are scheduled first.
-// Not done yet (later work, see PERF.md): wgmma and TMA, cp.async double
-// buffering of the K/V tiles, keeping P in registers between the products,
-// warp specialisation.
+// Not done yet (later work, see PERF.md): wgmma and TMA for the backward,
+// a persistent tile scheduler that hides each CTA's prologue, a TMA store
+// of the output.
 //
 // Plain C interface, bound with ctypes: each launcher returns the
 // cudaError_t of its launch; the Python wrappers allocate every output and
 // raise on non-zero.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -251,6 +315,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
                  float* __restrict__ lse, Dims dm) {
+  static_assert(sizeof(T) == 4, "bf16 runs flash_fwd_wgmma_kernel");
   constexpr int LD = D + Pad<T>::v, LDP = kTileK + Pad<T>::v;
   constexpr int NK = kTileK / 8, ND = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -340,6 +405,488 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   write_rows<T, ND>(out + ((size_t)bi * dm.sq * dm.h + hi) * D, q_stride,
                     row0, dm.sq, o, inv[0], inv[1]);
+}
+
+// ------------------------------------------------------------ bf16 forward
+//
+// Hopper building blocks (PTX): shared-memory addresses, mbarriers, TMA
+// loads, wgmma descriptors and products.
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Returns once the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// One box of a 4-d tensor map (coordinates innermost first) into shared
+// memory at dst, completing on `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets (16-byte units), layout type 1 (B128) in bits
+// 62-63. K-major: SBO = 1024 B between 8-row groups, LBO unused (1).
+// MN-major: LBO = bytes between 64-element column blocks, SBO = 1024 B
+// between 8-row groups along the contraction.
+__device__ __forceinline__ uint64_t desc_b128(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Waits until at most N of this warpgroup's committed wgmma groups are
+// still in flight (groups retire in order).
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Named barriers 1 and 2 order the two consumer warpgroups' products
+// (bar.sync: wait for the barrier's count; bar.arrive: count without
+// waiting). 0 is __syncthreads'.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Keeps the compiler from moving reads of an accumulator above the
+// wgmma.wait_group that makes it valid.
+template <int NT>
+__device__ __forceinline__ void fence_regs(float (&d)[NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
+}
+
+// d (64 x 128) = (scale_d ? d : 0) + A·B, A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss(float (&d)[16][4], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64) += A·B, A (64 x 16) from registers, B MN-major in shared
+// memory (the transpose bit).
+__device__ __forceinline__ void wgmma_rs(float (&d)[8][4],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128) += A·B, A (64 x 16) from registers, B MN-major in shared
+// memory (the transpose bit).
+__device__ __forceinline__ void wgmma_rs(float (&d)[16][4],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Everything shared between the launcher and the kernel: 128 query rows
+// per CTA (2 consumer warpgroups x 64), 128 keys per ring stage, every
+// tile stored as D / 64 halves of (rows x 128 B), 1024-byte aligned.
+template <int D>
+struct FwdTile {
+  static constexpr int kRows = 128, kKeys = 128, kStages = 3;
+  static constexpr int kConsumerWarps = 8;
+  static constexpr int kThreads = 32 * kConsumerWarps + 128;   // + producer
+  static constexpr int kHalves = D / 64;
+  static constexpr int kQHalf = kRows * 128, kKVHalf = kKeys * 128;
+  static constexpr int kQBytes = kHalves * kQHalf;
+  static constexpr int kKVBytes = kHalves * kKVHalf;   // one K or V tile
+  static constexpr int kStageBytes = 2 * kKVBytes;
+  static constexpr int kBarOff = kQBytes + kStages * kStageBytes;
+  // + full[kStages], empty[kStages], q barrier; + slack to align the base.
+  static constexpr int kSmem = kBarOff + 8 * (2 * kStages + 1) + 1024;
+};
+
+// The copies of one CTA, issued by one thread: Q once, then K/V tile i into
+// stage i % kStages once the consumers have released it.
+template <int D>
+struct FwdLoads {
+  using L = FwdTile<D>;
+  const CUtensorMap *tm_q, *tm_k, *tm_v;
+  uint32_t sQ, sKV, bar;
+  int bi, hi, kvh, q0;
+
+  __device__ __forceinline__ uint32_t full(int s) const { return bar + 8 * s; }
+  __device__ __forceinline__ uint32_t empty(int s) const {
+    return bar + 8 * (L::kStages + s);
+  }
+  __device__ __forceinline__ uint32_t q_bar() const {
+    return bar + 16 * L::kStages;
+  }
+  __device__ __forceinline__ void q() const {
+    mbar_expect_tx(q_bar(), L::kQBytes);
+    for (int h2 = 0; h2 < L::kHalves; ++h2)
+      tma_load_4d(sQ + h2 * L::kQHalf, tm_q, q_bar(), 64 * h2, hi, q0, bi);
+  }
+  __device__ __forceinline__ void kv(int i) const {
+    const int s = i % L::kStages;
+    const uint32_t sK = sKV + s * L::kStageBytes;
+    // Round r of a stage waits for the consumers' release of round r - 1
+    // (parity 1 on a fresh barrier passes at once).
+    mbar_wait(empty(s), ((i / L::kStages) & 1) ^ 1);
+    mbar_expect_tx(full(s), L::kStageBytes);
+    for (int h2 = 0; h2 < L::kHalves; ++h2) {
+      tma_load_4d(sK + h2 * L::kKVHalf, tm_k, full(s), 64 * h2, kvh,
+                  i * L::kKeys, bi);
+      tma_load_4d(sK + L::kKVBytes + h2 * L::kKVHalf, tm_v, full(s), 64 * h2,
+                  kvh, i * L::kKeys, bi);
+    }
+  }
+};
+
+// S = Q·Kᵀ for one warpgroup's 64 rows and a 128-key K tile, issued and
+// committed as one wgmma group (not waited for).
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&sc)[16][4], uint32_t sQw,
+                                         uint32_t sK) {
+  using L = FwdTile<D>;
+  zero(sc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    // k16 step kk: half kk / 4, 32 bytes further per step inside it.
+    const uint32_t off = (kk & 3) * 32;
+    wgmma_ss(sc, desc_b128(sQw + (kk >> 2) * L::kQHalf + off, 16, 1024),
+             desc_b128(sK + (kk >> 2) * L::kKVHalf + off, 16, 1024), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O = alpha·O, then O += P·V for a 128-key V tile, issued and committed as
+// one wgmma group. V is MN-major; LBO = the bytes between its 64-column
+// halves.
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 8][4],
+                                         const uint32_t (&p)[8][4],
+                                         const float (&alpha)[2],
+                                         uint32_t sV) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_rs(o, p[kk],
+             desc_b128(sV + kk * 16 * 128, FwdTile<D>::kKVHalf, 1024));
+  wgmma_commit();
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Scale, mask (-1e30 above the top-left causal diagonal and at keys >=
+// skv) and exponentiate one 16-row x 128-key slice of S in place; updates
+// the running max and sum of the thread's two rows and returns in alpha
+// the factor that rescales their earlier output. Works in base 2: m_r is
+// the running max of logit·log2(e), so that one FFMA and one ex2 give each
+// weight, exp(logit − m) = 2^(s·scale·log2(e) − m_r).
+__device__ __forceinline__ void softmax_tile(float (&sc)[16][4], int k0,
+                                             int row0, const Dims& dm,
+                                             float (&m_r)[2], float (&l_r)[2],
+                                             float (&alpha)[2]) {
+  constexpr int NK = 16, kKeys = 8 * NK;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float scale2 = dm.scale * kLog2e;
+  const bool masked =
+      (dm.causal && k0 + kKeys - 1 > row0) || k0 + kKeys > dm.skv;
+  if (masked) {
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + g + 8 * (e >> 1);
+        const int col = k0 + 8 * j + 2 * t + (e & 1);
+        sc[j][e] = (dm.causal && col > row) || col >= dm.skv
+                       ? kNegInf * kLog2e
+                       : sc[j][e] * scale2;
+      }
+  }
+  // Unmasked tiles scale inside the FFMA below (scale2 > 0 keeps the max).
+  const float mul = masked ? 1.f : scale2;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = kNegInf * kLog2e;
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+      mx = fmaxf(mx, fmaxf(sc[j][2 * r], sc[j][2 * r + 1]));
+    const float m_new = fmaxf(m_r[r], quad_max(mx) * mul);
+    alpha[r] = ex2(m_r[r] - m_new);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {
+      sc[j][2 * r] = ex2(fmaf(sc[j][2 * r], mul, -m_new));
+      sc[j][2 * r + 1] = ex2(fmaf(sc[j][2 * r + 1], mul, -m_new));
+      sum += sc[j][2 * r] + sc[j][2 * r + 1];
+    }
+    l_r[r] = alpha[r] * l_r[r] + sum;
+    m_r[r] = m_new;
+  }
+}
+
+// P as bf16 pairs: n8 chunks 2kk and 2kk + 1 of S are the register-A
+// fragment of the k16 step kk (keys 16 kk .. 16 kk + 15).
+__device__ __forceinline__ void to_p(uint32_t (&p)[8][4],
+                                     const float (&sc)[16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = 2 * kk + (e >> 1), x = 2 * (e & 1);
+      const __nv_bfloat162 v2 = __floats2bfloat162_rn(sc[j][x], sc[j][x + 1]);
+      p[kk][e] = *reinterpret_cast<const uint32_t*>(&v2);
+    }
+}
+
+// One consumer warpgroup: rows q0 + 64 wg .. + 63 of the CTA, 16 per warp.
+// Software pipeline over key tiles: iteration i issues S(i) = Q·K(i)ᵀ and
+// then O = alpha·O + P(i-1)·V(i-1) as two wgmma groups, runs the softmax of
+// S(i) once the first has retired (wait_group 1) while the second is still
+// in flight, and only then (wait_group 0) releases stage i-1 and writes
+// P(i) into the registers the PV product was reading.
+template <int D>
+__device__ __forceinline__ void fwd_consume(const FwdLoads<D>& ld,
+                                            int n_tiles,
+                                            __nv_bfloat16* __restrict__ out,
+                                            float* __restrict__ lse,
+                                            const Dims& dm) {
+  using L = FwdTile<D>;
+  constexpr int ND = D / 8;
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = ld.q0 + wg * 64 + warp * 16;
+  const uint32_t sQw = ld.sQ + wg * 64 * 128;
+  auto stage_k = [&](int i) {
+    return ld.sKV + (i % L::kStages) * L::kStageBytes;
+  };
+  float m_r[2] = {kNegInf * kLog2e, kNegInf * kLog2e}, l_r[2] = {0.f, 0.f};
+  float alpha[2], o[ND][4], sc[16][4];
+  uint32_t p[8][4];
+  zero(o);
+  // Ping-pong: the warpgroups take turns to issue their products (barrier
+  // 1 + wg is this one's turn), so one's softmax runs under the other's
+  // products. Warpgroup 1 lets 0 start, and skips its last hand-over so
+  // that every bar.sync meets exactly one bar.arrive.
+  if (wg == 1) bar_arrive(1, 256);
+  mbar_wait(ld.q_bar(), 0);
+  mbar_wait(ld.full(0), 0);
+  bar_sync(1 + wg, 256);
+  issue_qk<D>(sc, sQw, stage_k(0));
+  if (wg == 0 || n_tiles > 1) bar_arrive(2 - wg, 256);
+  wgmma_wait<0>();
+  fence_regs(sc);
+  softmax_tile(sc, 0, row0, dm, m_r, l_r, alpha);
+  to_p(p, sc);
+  for (int i = 1; i < n_tiles; ++i) {
+    mbar_wait(ld.full(i % L::kStages), (i / L::kStages) & 1);
+    bar_sync(1 + wg, 256);
+    issue_qk<D>(sc, sQw, stage_k(i));
+    issue_pv<D>(o, p, alpha, stage_k(i - 1) + L::kKVBytes);
+    if (wg == 0 || i < n_tiles - 1) bar_arrive(2 - wg, 256);
+    wgmma_wait<1>();
+    fence_regs(sc);
+    softmax_tile(sc, i * L::kKeys, row0, dm, m_r, l_r, alpha);
+    wgmma_wait<0>();
+    fence_regs(o);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(ld.empty((i - 1) % L::kStages));
+    to_p(p, sc);
+  }
+  issue_pv<D>(o, p, alpha, stage_k(n_tiles - 1) + L::kKVBytes);
+  wgmma_wait<0>();
+  fence_regs(o);
+  __syncwarp();
+  if (lane == 0) mbar_arrive(ld.empty((n_tiles - 1) % L::kStages));
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float l = fmaxf(quad_sum(l_r[r]), 1e-30f);
+    inv[r] = 1.f / l;
+    const int row = row0 + g + 8 * r;
+    if (lse != nullptr && t == 0 && row < dm.sq)
+      lse[((size_t)ld.bi * dm.h + ld.hi) * dm.sq + row] =
+          m_r[r] / kLog2e + logf(l);
+  }
+  write_rows<__nv_bfloat16, ND>(
+      out + ((size_t)ld.bi * dm.sq * dm.h + ld.hi) * D, (size_t)dm.h * D,
+      row0, dm.sq, o, inv[0], inv[1]);
+}
+
+template <int D>
+__global__ void __launch_bounds__(FwdTile<D>::kThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       __nv_bfloat16* __restrict__ out,
+                       float* __restrict__ lse, Dims dm) {
+  using L = FwdTile<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  FwdLoads<D> ld;
+  ld.tm_q = &tm_q;
+  ld.tm_k = &tm_k;
+  ld.tm_v = &tm_v;
+  ld.sQ = base;
+  ld.sKV = base + L::kQBytes;
+  ld.bar = base + L::kBarOff;
+  const int bh = blockIdx.x;
+  ld.bi = bh / dm.h;
+  ld.hi = bh % dm.h;
+  ld.kvh = ld.hi / dm.n_rep;
+  // Causal: the last q tiles walk the most keys; they start first.
+  ld.q0 = (dm.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * L::kRows;
+  const int kv_end = dm.causal ? min(dm.skv, ld.q0 + L::kRows) : dm.skv;
+  const int n_tiles = (kv_end + L::kKeys - 1) / L::kKeys;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(ld.full(s), 1);
+      mbar_init(ld.empty(s), L::kConsumerWarps);
+    }
+    mbar_init(ld.q_bar(), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // One if/else for the two roles, never rejoined, so that ptxas can give
+  // each its own register count.
+  if (threadIdx.x >= 32 * L::kConsumerWarps) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 32 * L::kConsumerWarps) {
+      ld.q();
+      for (int i = 0; i < n_tiles; ++i) ld.kv(i);
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    fwd_consume<D>(ld, n_tiles, out, lse, dm);
+  }
 }
 
 // ---------------------------------------------------------------- dQ
@@ -566,6 +1113,73 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled is a driver-API function: fetched once through the
+// runtime, so the library needs no -lcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 (batch, seq, heads, d) tensor read in place as a 4-d tensor map
+// (innermost first: d, heads, seq, batch); a box is 64 columns (128 bytes,
+// the swizzle's width) of `box_rows` positions of one head. Positions past
+// seq arrive as zeros.
+bool tensor_map(CUtensorMap* map, const void* ptr, int d, int heads,
+                int seq, int batch, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
+                              (cuuint64_t)seq, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {2ull * d, 2ull * d * heads,
+                                 2ull * d * heads * seq};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t fwd_wgmma(const void* q, const void* k, const void* v, void* out,
+                      void* lse, int b, int sq, int skv, int h, int hkv,
+                      int causal, float scale, cudaStream_t st) {
+  using L = FwdTile<D>;
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map(&tq, q, D, h, sq, b, L::kRows) ||
+      !tensor_map(&tk, k, D, hkv, skv, b, L::kKeys) ||
+      !tensor_map(&tv, v, D, hkv, skv, b, L::kKeys))
+    return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(flash_fwd_wgmma_kernel<D>, L::kSmem);
+  if (err != cudaSuccess) return err;
+  flash_fwd_wgmma_kernel<D><<<dim3(b * h, tiles(sq, L::kRows)), L::kThreads,
+                              L::kSmem, st>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(lse), dims(sq, skv, h, hkv, causal, scale));
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t bwd_dq(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
@@ -623,15 +1237,38 @@ bool valid(int b, int sq, int skv, int h, int hkv) {
   }
 
 // q (b, sq, h, d), k/v (b, skv, hkv, d) -> out like q, lse (b, h, sq) fp32
-// or nullptr for none.
+// or nullptr for none. bf16 runs flash_fwd_wgmma_kernel, fp32 the
+// CUDA-core flash_fwd_kernel.
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* out, void* lse, int b, int sq, int skv,
                                 int h, int hkv, int d, int causal,
                                 float scale, int is_bf16, void* stream) {
   if (!valid(b, sq, skv, h, hkv)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(fwd, q, k, v, out, lse, b, sq, skv, h, hkv, causal, scale,
-                 st)
+  switch (d) {
+    case 64:
+      return (int)(is_bf16 ? fwd_wgmma<64>(q, k, v, out, lse, b, sq, skv, h,
+                                           hkv, causal, scale, st)
+                           : fwd<float, 64>(q, k, v, out, lse, b, sq, skv, h,
+                                            hkv, causal, scale, st));
+    case 128:
+      return (int)(is_bf16 ? fwd_wgmma<128>(q, k, v, out, lse, b, sq, skv, h,
+                                            hkv, causal, scale, st)
+                           : fwd<float, 128>(q, k, v, out, lse, b, sq, skv,
+                                             h, hkv, causal, scale, st));
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Dynamic shared memory of the forward kernel for head dim d (bf16 or
+// fp32), for reports beside ptxas's register counts.
+extern "C" int flash_fwd_smem_bytes(int d, int is_bf16) {
+  if (d == 64)
+    return (int)(is_bf16 ? FwdTile<64>::kSmem : fwd_smem<float, 64>());
+  if (d == 128)
+    return (int)(is_bf16 ? FwdTile<128>::kSmem : fwd_smem<float, 128>());
+  return -1;
 }
 
 // + dout like q, lse and delta (b, h, sq) fp32 -> dq like q.

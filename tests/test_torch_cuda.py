@@ -161,24 +161,36 @@ def test_split_engine_launches_rect_kernel_per_step(cuda):
     assert pa.ragged_paged_attention_unified.launches == 0
 
 
+# (causal, sq, skv, h, hkv): ragged tails, sq != skv both ways, and rows and
+# keys that straddle the bf16 forward's 128-row, 128-key tiles (1, 127, 129,
+# 300), at GQA n_rep 1, 2 and 4.
+FLASH_SHAPES = [(True, 100, 100, 4, 2), (True, 70, 130, 4, 2),
+                (False, 90, 60, 4, 2), (True, 1, 1, 4, 1),
+                (True, 1, 300, 4, 1), (False, 1, 129, 4, 2),
+                (True, 127, 127, 4, 1), (True, 129, 129, 4, 1),
+                (True, 127, 300, 4, 2), (True, 300, 129, 4, 1),
+                (True, 129, 127, 4, 1), (False, 300, 127, 4, 1),
+                (True, 300, 300, 8, 2)]
+
+
 @pytest.mark.parametrize("dtype,tol,grad_tol", [(torch.float32, 1e-5, 1e-4),
                                                 (torch.bfloat16, 2e-2, 2e-2)])
-@pytest.mark.parametrize("causal,sq,skv", [(True, 100, 100),
-                                           (True, 70, 130),
-                                           (False, 90, 60)])
-def test_flash_kernels_match_plain_versions(cuda, dtype, tol, grad_tol,
-                                            causal, sq, skv):
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal,sq,skv,h,hkv", FLASH_SHAPES)
+def test_flash_kernels_match_plain_versions(cuda, dtype, tol, grad_tol, d,
+                                            causal, sq, skv, h, hkv):
     """flash_fwd (with and without LSE), flash_bwd_dq and flash_bwd_dkv
     against their plain versions: ragged tails (not multiples of the
-    kernels' 64-row tiles), GQA n_rep 2, sq != skv both ways."""
+    kernels' 64- or 128-row tiles), GQA n_rep 1 to 4, sq != skv both
+    ways."""
     from ray_tpu_torch.ops import attention as ta
 
     rng = np.random.default_rng(3)
     f = lambda *s: torch.from_numpy(  # noqa: E731
         rng.standard_normal(s, dtype=np.float32)).to("cuda", dtype)
-    q, k, v, dout = f(2, sq, 4, 64), f(2, skv, 2, 64), f(2, skv, 2, 64), \
-        f(2, sq, 4, 64)
-    scale = 0.125
+    q, k, v, dout = f(2, sq, h, d), f(2, skv, hkv, d), f(2, skv, hkv, d), \
+        f(2, sq, h, d)
+    scale = d ** -0.5
     before = {n: getattr(ta, n).launches
               for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
     out, lse = ta.flash_fwd(q, k, v, causal, scale)
@@ -186,7 +198,7 @@ def test_flash_kernels_match_plain_versions(cuda, dtype, tol, grad_tol,
     ref_out, ref_lse = ta.flash_fwd_reference(q, k, v, causal, scale)
     delta = ((dout.float() * ref_out.float()).sum(-1).transpose(1, 2)
              - torch.from_numpy(rng.standard_normal(
-                 (2, 4, sq), dtype=np.float32)).cuda()).contiguous()
+                 (2, h, sq), dtype=np.float32)).cuda()).contiguous()
     args = (q, k, v, dout, ref_lse, delta, causal, scale)
     dq = ta.flash_bwd_dq(*args)
     dk, dv = ta.flash_bwd_dkv(*args)
