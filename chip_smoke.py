@@ -11,8 +11,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
   1. device    nvidia-smi name + power limit, torch.cuda device name; TF32
                off for matmuls and cuDNN.
   2. build     nvcc builds ray_tpu_torch/ops/csrc/*.cu (ops/_build.py);
-               prints ptxas's registers and spills per kernel and the bf16
-               flash forward's dynamic shared memory.
+               prints ptxas's registers and spills per kernel and the
+               dynamic shared memory of the bf16 flash forward and dK/dV
+               kernels.
   3. kernel    the K5 kernel (unified ragged paged attention) and the K6
                kernel (rectangular ragged paged attention) against their
                plain PyTorch versions on the card at Llama-3-8B attention
@@ -62,11 +63,12 @@ causal sq < skv (512/1024), non-causal (1024/1536), and the long regimes
 (forward 16384, backward 8192), timing each beside
 `scaled_dot_product_attention` (library_ms; the port never calls it).
 fp32 tolerance 1e-5 for out/LSE and 1e-4 for gradients, bf16 2e-2.
-`--turns A,B,...` then times the bf16 flash forward of each listed tree's
-ray_tpu_torch (a directory holding the package, e.g. a parent commit's
-copy unpacked in a git-ignored directory), one child process per entry,
-in the order given, at the train, gqa4 and long_fwd shapes: run parent,
-change, change, parent to compare two versions on one card.
+`--turns A,B,...` then times the bf16 flash forward and dK/dV pass of each
+listed tree's ray_tpu_torch (a directory holding the package, e.g. a
+parent commit's copy unpacked in a git-ignored directory), one child
+process per entry, in the order given (TURN_CASES: the forward at train,
+gqa4 and long_fwd, dK/dV at train and long_bwd): run parent, change,
+change, parent to compare two versions on one card.
 Prints a `{"kernels": [...]}` line, then, last, the device line
 `{"ok": true, "device": {...}}`; `--out FILE` also writes every result as
 JSON. Imports nothing of jax or ray_tpu.
@@ -142,12 +144,17 @@ def phase_build():
         elif any(w in line for w in ("registers", "spill", "error",
                                      "warning")):
             log(f"  ptxas {name}: {line.strip()}")
-    smem = {d: lib.flash_fwd_smem_bytes(d, 1) for d in (64, 128)}
-    log("  flash_fwd_wgmma_kernel dynamic shared memory: " + ", ".join(
-        f"d={d} {b} bytes" for d, b in smem.items()))
+    smem = {"flash_fwd_wgmma_kernel": {
+        d: lib.flash_fwd_smem_bytes(d, 1) for d in (64, 128)},
+        "flash_bwd_dkv_wgmma_kernel": {
+        d: lib.flash_bwd_dkv_smem_bytes(d) for d in (64, 128)}}
+    for kernel, by_d in smem.items():
+        log(f"  {kernel} dynamic shared memory: " + ", ".join(
+            f"d={d} {b} bytes" for d, b in by_d.items()))
     log(f"build: {wall:.2f} s (nvcc {_build.build_seconds or 0:.2f} s)")
     RESULTS["build_s"] = wall
-    RESULTS["flash_fwd_smem_bytes"] = smem
+    RESULTS["flash_fwd_smem_bytes"] = smem["flash_fwd_wgmma_kernel"]
+    RESULTS["flash_bwd_dkv_smem_bytes"] = smem["flash_bwd_dkv_wgmma_kernel"]
 
 
 def _time_ms(torch, fn, iters: int) -> float:
@@ -506,43 +513,64 @@ def _flash_cases(torch):
     return rows
 
 
-# Cases timed in turns against another tree's ray_tpu_torch (--turns).
-TURN_CASES = ("train", "gqa4", "long_fwd")
+# (kernel, FLASH_CASES case) pairs timed in turns against another tree's
+# ray_tpu_torch (--turns).
+TURN_CASES = (("flash_fwd", "train"), ("flash_fwd", "gqa4"),
+              ("flash_fwd", "long_fwd"), ("flash_bwd_dkv", "train"),
+              ("flash_bwd_dkv", "long_bwd"))
+
+
+def _turn_label(kernel, case):
+    return f"{kernel}/{case}"
 
 
 def _fwd_times(torch):
-    """Child of --turns: the bf16 flash forward (with LSE) of whichever
-    ray_tpu_torch this process imports, at TURN_CASES: CUDA-event ms and
-    the worst error against its plain version. Prints one TURN line."""
+    """Child of --turns: the bf16 flash forward (with LSE) and dK/dV pass
+    of whichever ray_tpu_torch this process imports, at TURN_CASES:
+    CUDA-event ms and the worst error against the plain version (dK/dV on
+    the plain forward's LSE and a seeded out cotangent). Prints one TURN
+    line."""
     from ray_tpu_torch.ops import attention as attn
     from ray_tpu_torch.ops import _build
 
     _build.load_library()
     res = {"package": os.path.relpath(os.path.dirname(os.path.dirname(
         os.path.dirname(attn.__file__))))}
-    for name, dims, causal, _ in FLASH_CASES:
-        if name not in TURN_CASES:
-            continue
-        _, q, k, v = _flash_inputs(torch, name, dims, torch.bfloat16)
+    cases = {name: (dims, causal) for name, dims, causal, _ in FLASH_CASES}
+    for kernel, name in TURN_CASES:
+        dims, causal = cases[name]
+        randn, q, k, v = _flash_inputs(torch, name, dims, torch.bfloat16)
         scale = 1.0 / math.sqrt(128)
-        got = attn.flash_fwd(q, k, v, causal, scale)
+        ref_out, ref_lse = attn.flash_fwd_reference(q, k, v, causal, scale)
+        if kernel == "flash_fwd":
+            args = (q, k, v, causal, scale)
+            ref = (ref_out, ref_lse)
+            tol = TOLERANCE["bfloat16"]
+        else:
+            b, sq, _, h, _ = dims
+            dout = randn(b, sq, h, 128)
+            delta = (dout.float() * ref_out.float()).sum(-1).transpose(
+                1, 2).contiguous()
+            args = (q, k, v, dout, ref_lse, delta, causal, scale)
+            ref = attn.flash_bwd_dkv_reference(*args)
+            tol = GRAD_TOLERANCE["bfloat16"]
+        fn = getattr(attn, kernel)
+        got = fn(*args)
         torch.cuda.synchronize()
-        err = _close(torch, f"turn {name}", got,
-                     attn.flash_fwd_reference(q, k, v, causal, scale),
-                     TOLERANCE["bfloat16"])
-        res[name] = dict(ms=_time_auto(
-            torch, lambda: attn.flash_fwd(q, k, v, causal, scale),
-            budget_s=1.0, most=200), max_abs_err=err)
-        del q, k, v, got
+        err = _close(torch, f"turn {kernel} {name}", got, ref, tol)
+        res[_turn_label(kernel, name)] = dict(ms=_time_auto(
+            torch, lambda: fn(*args), budget_s=1.0, most=200),
+            max_abs_err=err)
+        del q, k, v, got, ref, ref_out, ref_lse, args
         torch.cuda.empty_cache()
     print("TURN " + json.dumps(res), flush=True)
 
 
 def run_turns(trees):
-    """The bf16 flash forward of each tree in `trees` (a directory holding
-    a ray_tpu_torch package, e.g. a parent commit's unpacked copy), one
-    child process each, in the order given (parent, change, change,
-    parent): kernel ms per TURN_CASES case."""
+    """The bf16 flash forward and dK/dV pass of each tree in `trees` (a
+    directory holding a ray_tpu_torch package, e.g. a parent commit's
+    unpacked copy), one child process each, in the order given (parent,
+    change, change, parent): kernel ms per TURN_CASES pair."""
     here = os.path.abspath(__file__)
     rows = []
     for tree in trees:
@@ -556,9 +584,10 @@ def run_turns(trees):
                                f"\n{proc.stderr[-4000:]}")
         row = json.loads(line[5:])
         rows.append(row)
+        labels = [_turn_label(*c) for c in TURN_CASES]
         log(f"turn {tree}: " + ", ".join(
             f"{c} {row[c]['ms']:.4f} ms (err {row[c]['max_abs_err']:.3g})"
-            for c in TURN_CASES))
+            for c in labels))
     RESULTS["turns"] = rows
 
 
@@ -1224,16 +1253,18 @@ def kernels_line() -> dict:
     over all its cases. `launches` is the count of the run that drives the
     kernel's path (server phase for K5, split phase for K6, the bench
     train run for the flash kernels; counts reset to 0 just before each
-    run), null when that phase did not run."""
+    run), null when that phase did not run. `cuda_kernel` names the
+    `__global__` functions the bf16 case launches, as profiles show them."""
     rows = RESULTS.get("kernel_cases", [])
     train = RESULTS.get("train", {}).get("bench", {}).get("launches", {})
 
-    def entry(kernel, name, source, replaces, head_case, launches):
+    def entry(kernel, name, cuda_kernel, source, replaces, head_case,
+              launches):
         mine = [r for r in rows if r["kernel"] == kernel]
         head = next((r for r in mine if r["case"] == head_case
                      and r["dtype"] == "bfloat16"), {})
         return {
-            "name": name, "route": "cuda",
+            "name": name, "route": "cuda", "cuda_kernel": cuda_kernel,
             "source": f"ray_tpu_torch/ops/csrc/{source}",
             "replaces": replaces, "launches": launches,
             "max_abs_err": max((r["max_abs_err"] for r in mine),
@@ -1245,19 +1276,26 @@ def kernels_line() -> dict:
 
     attn = "ray_tpu/ops/attention.py"
     return {"kernels": [
-        entry("K5", "ragged_paged_attention_unified", "paged_attention.cu",
+        entry("K5", "ragged_paged_attention_unified",
+              "rua_kernel (+ rua_merge_kernel when split)",
+              "paged_attention.cu",
               "ray_tpu/ops/paged_attention.py:177", "tick_136",
               RESULTS.get("server", {}).get("k5_launches")),
-        entry("K6", "ragged_paged_attention", "paged_attention.cu",
+        entry("K6", "ragged_paged_attention",
+              "rpa_kernel (+ rpa_merge_kernel when split)",
+              "paged_attention.cu",
               "ray_tpu/ops/paged_attention.py:69", "split_decode",
               RESULTS.get("split", {}).get("k6_launches")),
-        entry("flash_fwd", "flash_fwd", "flash_attention.cu",
+        entry("flash_fwd", "flash_fwd", "flash_fwd_wgmma_kernel",
+              "flash_attention.cu",
               f"{attn}:520 (K1), {attn}:553 (K2)", "train",
               train.get("flash_fwd")),
-        entry("flash_bwd_dq", "flash_bwd_dq", "flash_attention.cu",
+        entry("flash_bwd_dq", "flash_bwd_dq", "flash_bwd_dq_kernel",
+              "flash_attention.cu",
               f"{attn}:616 (K3 dQ), {attn}:738 (K4 dQ)", "train_bwd",
               train.get("flash_bwd_dq")),
-        entry("flash_bwd_dkv", "flash_bwd_dkv", "flash_attention.cu",
+        entry("flash_bwd_dkv", "flash_bwd_dkv", "flash_bwd_dkv_wgmma_kernel",
+              "flash_attention.cu",
               f"{attn}:634 (K3 dK/dV), {attn}:771 (K4 dK/dV)", "train_bwd",
               train.get("flash_bwd_dkv"))]}
 
@@ -1269,7 +1307,9 @@ def main(argv=None) -> int:
     ap.add_argument("--out", help="also write all results as JSON here")
     ap.add_argument("--turns", help="comma-separated trees, each holding "
                     "a ray_tpu_torch package: time their bf16 flash "
-                    "forward at " + "/".join(TURN_CASES) + " in this order")
+                    "kernels at " + ", ".join(_turn_label(*c) for c in
+                                              TURN_CASES)
+                    + " in this order")
     ap.add_argument("--fwd-times-in", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.fwd_times_in:

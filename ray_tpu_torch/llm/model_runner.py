@@ -15,8 +15,10 @@ Port of ray_tpu/llm/model_runner.py:
     speculative verify) and `step_sample_multi` (k decode steps chained on
     the device). Their attention is the rectangular kernel (K6).
   * Attention goes through ops/paged_attention.py: the CUDA kernel on a
-    CUDA tensor, the plain version on the CPU. Every head samples with
-    one sampler, `_device_sample`, so split and unified ticks draw alike.
+    CUDA tensor, the plain version on the CPU. Head dims where the JAX
+    runner runs its reference (80, 96, ...) call the plain versions on
+    the card too (`uses_kernel`). Every head samples with one sampler,
+    `_device_sample`, so split and unified ticks draw alike.
   * Host arrays go to the device through pinned memory without waiting
     for it, and the split decode's sampled ids come back through
     `HostCopy`: nothing on the decode dispatch path synchronises.
@@ -133,6 +135,26 @@ class HostCopy:
         return self._host.numpy()
 
 
+def uses_kernel(device_type: str, head_dim: int, n_heads: int,
+                n_kv_heads: int) -> bool:
+    """Whether the runner's paged attention launches K5/K6 (through the
+    wrappers of ops/paged_attention.py) or calls their plain versions
+    directly. The JAX runner's rule with "on a TPU" read as "on a CUDA
+    device": its kernel where the head dim is a multiple of 128, its
+    reference elsewhere (head dim 80, 96, ...); K5/K6 also take head dim
+    64. Where the JAX rule picks its kernel and K5/K6 lack the shape (head
+    dim 256, H/K > 32), raises: that kernel is ROADMAP queue 2 D."""
+    if device_type != "cuda":
+        return False
+    if pa.kernel_fits(head_dim, n_heads, n_kv_heads):
+        return True
+    if head_dim % 128 == 0:
+        raise ValueError(f"K5/K6 take head dims {pa.HEAD_DIMS} with "
+                         f"H/K <= 32, not head_dim {head_dim}, H={n_heads}, "
+                         f"K={n_kv_heads}; that kernel is ROADMAP queue 2 D")
+    return False
+
+
 class ModelRunner:
     """Eager bucketed steps over a paged cache, on one device."""
 
@@ -146,6 +168,13 @@ class ModelRunner:
                  device="cuda"):
         self.device = resolve_device(device)
         self.config = config
+        kernel = uses_kernel(self.device.type, config.head_dim,
+                             config.n_heads, config.n_kv_heads)
+        self._unified_attention = (
+            pa.ragged_paged_attention_unified if kernel
+            else pa.ragged_paged_attention_unified_reference)
+        self._rect_attention = (pa.ragged_paged_attention if kernel
+                                else pa.ragged_paged_attention_reference)
         self.block_size = block_size
         self.num_blocks = num_blocks
         self.chunk_size = chunk_size
@@ -223,7 +252,7 @@ class ModelRunner:
             # ck.at[li, :, ids, offs].set((T, K, hd)) writes it.
             ck[:, block_ids, offsets] = k[:n_real].transpose(0, 1)
             cv[:, block_ids, offsets] = v[:n_real].transpose(0, 1)
-            attn = pa.ragged_paged_attention_unified(
+            attn = self._unified_attention(
                 q, ck, cv, block_tables, kv_lens, q_positions, cu_q_lens,
                 scale=scale)
             x = x + attn.reshape(T, H * hd) @ layers["wo"][li]
@@ -337,7 +366,7 @@ class ModelRunner:
                 # Kv-head dim first, as in _backbone_mixed.
                 ck[:, block_ids, offsets] = k[rows].transpose(0, 1)
                 cv[:, block_ids, offsets] = v[rows].transpose(0, 1)
-            attn = pa.ragged_paged_attention(
+            attn = self._rect_attention(
                 q.reshape(S, Bq, H, hd), ck, cv, tables_t, kv_lens_t,
                 q_pos_t, scale=scale)
             x = x + attn.reshape(S * Bq, H * hd) @ layers["wo"][li]

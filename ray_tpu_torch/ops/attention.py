@@ -28,6 +28,8 @@ from typing import Optional, Tuple
 import torch
 
 NEG_INF = -1e30
+# Head dims the flash kernels are instantiated for (csrc/flash_attention.cu).
+FLASH_HEAD_DIMS = (64, 128)
 
 
 def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -238,7 +240,7 @@ def _check_kernel_args(q, k, v, *rest):
     b, sq, h, d = q.shape
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"q dtype {q.dtype}: kernel takes bfloat16/float32")
-    if d not in (64, 128):
+    if d not in FLASH_HEAD_DIMS:
         raise ValueError(f"head_dim {d}: kernel takes 64/128")
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d \
             or h % k.shape[2]:
@@ -460,17 +462,29 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def auto_impl(device_type: str, head_dim: int, sq: int) -> str:
+    """attention(impl="auto")'s choice: the JAX package's rule with "on a
+    TPU" read as "on a CUDA tensor": flash when the head dim is a multiple
+    of 128 and sq >= 256, else the reference; always the reference on the
+    CPU. Where that rule picks flash at a head dim the kernels lack (256),
+    raises: the port has no such kernel yet (ROADMAP queue 2 D)."""
+    if device_type != "cuda" or head_dim % 128 or sq < 256:
+        return "reference"
+    if head_dim not in FLASH_HEAD_DIMS:
+        raise ValueError(f"head_dim {head_dim}: the flash kernels take "
+                         f"{FLASH_HEAD_DIMS}; a d={head_dim} kernel is "
+                         f"ROADMAP queue 2 D")
+    return "flash"
+
+
 def attention(q, k, v, *, causal: bool = True,
               scale: Optional[float] = None,
               impl: str = "auto") -> torch.Tensor:
     """Dispatch: "reference" (plain PyTorch, O(s²) memory), "flash" (the
-    flash ops: O(s) memory, differentiable). "auto" keeps the JAX
-    package's rule with "on a TPU" read as "on a CUDA tensor": flash when
-    the head dim is a multiple of 128 and sq >= 256, else the reference;
-    always the reference on the CPU."""
+    flash ops: O(s) memory, differentiable; raises at a head dim the
+    kernels lack), "auto" (`auto_impl`)."""
     if impl == "auto":
-        impl = ("flash" if q.device.type == "cuda" and q.shape[-1] % 128 == 0
-                and q.shape[1] >= 256 else "reference")
+        impl = auto_impl(q.device.type, q.shape[-1], q.shape[1])
     if impl == "reference":
         return mha_reference(q, k, v, causal=causal, scale=scale)
     if impl == "flash":

@@ -5,8 +5,9 @@
 //     `_flash_fwd_kernel_tiled`/`_nolse` (call :553);
 //   * flash_bwd_dq_kernel: K3 `_flash_bwd_dq_kernel_resident` (call :616)
 //     and K4 `_flash_bwd_dq_kernel` (call :738);
-//   * flash_bwd_dkv_kernel: K3 `_flash_bwd_dkv_kernel_resident` (call :634)
-//     and K4 `_flash_bwd_dkv_kernel` (call :771).
+//   * flash_bwd_dkv_wgmma_kernel (bf16) and flash_bwd_dkv_kernel (fp32): K3
+//     `_flash_bwd_dkv_kernel_resident` (call :634) and K4
+//     `_flash_bwd_dkv_kernel` (call :771).
 // The TPU kernels come in a resident and a tiled variant because K/V (or
 // the q side) must fit the TPU's ~16 MB scoped VMEM; here every block walks
 // its tiles through shared memory in a loop, so one kernel per pass covers
@@ -96,7 +97,54 @@
 //     links against the CUDA runtime alone (no -lcuda). TMA needs 16-byte
 //     aligned bases and strides that are multiples of 16 bytes; the Python
 //     wrapper refuses other tensors.
-// fp32 (forward, and every backward pass) keeps the warp-level design:
+// The bf16 dK/dV pass (flash_bwd_dkv_wgmma_kernel, head dims 64 and 128)
+// is built from the same blocks:
+//   * one CTA = 128 keys of one (batch, kv head): two consumer warpgroups of
+//     64 keys each plus one producer warpgroup (setmaxnreg 24/240). K and V
+//     arrive once per CTA by TMA; the CTA walks the group's n_rep query
+//     heads (head kvh·n_rep + rep of the public layout, read in place) and,
+//     per head, the 64-row q tiles from the causal diagonal on, through a
+//     ring of 4 stages of (Q tile, dO tile, 64 LSE, 64 delta) with full and
+//     empty mbarriers. Key tile 0 (the most causal q tiles) starts first. No
+//     atomics and no partial buffers: the result is deterministic;
+//   * each warpgroup computes the transposed products with its keys as the
+//     M rows: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (wgmma m64n64k16, A = its K or V
+//     rows, B = the Q or dO tile, both K-major), then Pᵀ =
+//     2^(Sᵀ·scale·log2 e − LSE·log2 e) and dSᵀ = Pᵀ∘(dPᵀ − delta), with LSE
+//     and delta indexed by column (query row). Rounded to bf16x2 in place,
+//     two adjacent n8 chunks of Pᵀ (dSᵀ) are the register-A fragment of one
+//     k16 step of dV += Pᵀ·dO (dK += dSᵀ·Q), m64n{64|128}k16, whose B is the
+//     same staged dO (Q) tile read MN-major with the transpose bit (LBO =
+//     the 8 KB between its 64-column halves). So each staged Q/dO tile is
+//     read through two descriptors, and neither P nor dS touches shared
+//     memory;
+//   * LSE and delta are (b, h, sq) fp32 rows, and a row starts 16-byte
+//     aligned only when sq % 4 == 0 (not at sq = 127, 300 or 1000), so no
+//     tensor map reads them: the producer's first warp loads a stage's 64
+//     values of each with plain loads into a buffer TMA never writes (LSE
+//     times log2 e), and its 32 lanes arrive on the stage's full barrier,
+//     lane 0 with the stage's TMA bytes; the arrive's release and the
+//     consumers' wait's acquire order the stores. Each consumer thread
+//     reads its 16 columns' values as float2s;
+//   * TMA fills Q and dO rows past sq with zeros, but a zero LSE would
+//     still give 2^0 = 1: every tile that the causal diagonal (row < key),
+//     the row edge (row >= sq) or the key edge (key >= skv) crosses is
+//     masked explicitly (per warp, so inner tiles pay nothing). A q tile
+//     wholly above a warpgroup's keys (causal; warpgroup 1's keys start 64
+//     later) and a warpgroup wholly past skv compute nothing and only
+//     release the stage;
+//   * per consumer thread at d = 128: dK and dV take 64 + 64 fp32
+//     registers, Sᵀ and dPᵀ 32 + 32, the two bf16 fragments 16 + 16. Each
+//     warpgroup issues Sᵀ and dPᵀ as one wgmma group and dV, dK as
+//     another, waiting for each before it reads the accumulators or
+//     releases the stage; the two warpgroups overlap on the tensor cores.
+//     Issuing tile i's Sᵀ before tile i−1's dV/dK (the forward's
+//     intra-warpgroup overlap) keeps 64 more fp32 registers live: at d =
+//     128 it spilled and took ~1.4x as long, and a ring refilled by a
+//     consumer warp instead of the producer warpgroup ~1.25x (PERF.md);
+//   * the epilogue writes dK·scale and dV from registers in bf16, for keys
+//     < skv only.
+// fp32 (forward, dQ and dK/dV) and the bf16 dQ keep the warp-level design:
 //   * a block owns 64 query rows (forward, dQ) or 64 keys (dK/dV) and
 //     stages each K/V (or Q/dO) tile in shared memory ONCE for all of them;
 //     each of its 4 warps owns 16 of those rows;
@@ -110,9 +158,9 @@
 //     fp32 rounding (no TF32);
 //   * causal blocks skip key tiles above the diagonal (forward, dQ) and q
 //     tiles below it (dK/dV), and the heaviest tiles are scheduled first.
-// Not done yet (later work, see PERF.md): wgmma and TMA for the backward,
-// a persistent tile scheduler that hides each CTA's prologue, a TMA store
-// of the output.
+// Not done yet (later work, see PERF.md): wgmma and TMA for the bf16 dQ,
+// ping-pong of the dK/dV warpgroups, a persistent tile scheduler that
+// hides each CTA's prologue, a TMA store of the outputs.
 //
 // Plain C interface, bound with ctypes: each launcher returns the
 // cudaError_t of its launch; the Python wrappers allocate every output and
@@ -542,6 +590,28 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[16][4], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d (64 x 64) = (scale_d ? d : 0) + A·B, A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // d (64 x 64) += A·B, A (64 x 16) from registers, B MN-major in shared
 // memory (the transpose bit).
 __device__ __forceinline__ void wgmma_rs(float (&d)[8][4],
@@ -602,6 +672,33 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[16][4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// The mbarriers of a ring of kStages stages, at `bar`: full[kStages], then
+// empty[kStages], then one barrier for the tile a CTA loads once. Tile i of
+// a walk uses stage i % kStages. Shared by the forward and dK/dV kernels.
+template <int kStages>
+struct Ring {
+  static constexpr int kBarBytes = 8 * (2 * kStages + 1);
+  uint32_t bar;
+
+  __device__ __forceinline__ uint32_t full(int i) const {
+    return bar + 8 * (i % kStages);
+  }
+  __device__ __forceinline__ uint32_t empty(int i) const {
+    return bar + 8 * (kStages + i % kStages);
+  }
+  __device__ __forceinline__ uint32_t once() const {
+    return bar + 16 * kStages;
+  }
+  // Round r of a stage waits for the consumers' release of round r - 1
+  // (parity 1 on a fresh barrier passes at once).
+  __device__ __forceinline__ void wait_empty(int i) const {
+    mbar_wait(empty(i), ((i / kStages) & 1) ^ 1);
+  }
+  __device__ __forceinline__ void wait_full(int i) const {
+    mbar_wait(full(i), (i / kStages) & 1);
+  }
+};
+
 // Everything shared between the launcher and the kernel: 128 query rows
 // per CTA (2 consumer warpgroups x 64), 128 keys per ring stage, every
 // tile stored as D / 64 halves of (rows x 128 B), 1024-byte aligned.
@@ -616,42 +713,34 @@ struct FwdTile {
   static constexpr int kKVBytes = kHalves * kKVHalf;   // one K or V tile
   static constexpr int kStageBytes = 2 * kKVBytes;
   static constexpr int kBarOff = kQBytes + kStages * kStageBytes;
-  // + full[kStages], empty[kStages], q barrier; + slack to align the base.
-  static constexpr int kSmem = kBarOff + 8 * (2 * kStages + 1) + 1024;
+  // + the ring's barriers (the once barrier is Q's); + slack to align.
+  static constexpr int kSmem = kBarOff + Ring<kStages>::kBarBytes + 1024;
 };
 
 // The copies of one CTA, issued by one thread: Q once, then K/V tile i into
 // stage i % kStages once the consumers have released it.
 template <int D>
-struct FwdLoads {
+struct FwdLoads : Ring<FwdTile<D>::kStages> {
   using L = FwdTile<D>;
   const CUtensorMap *tm_q, *tm_k, *tm_v;
-  uint32_t sQ, sKV, bar;
+  uint32_t sQ, sKV;
   int bi, hi, kvh, q0;
 
-  __device__ __forceinline__ uint32_t full(int s) const { return bar + 8 * s; }
-  __device__ __forceinline__ uint32_t empty(int s) const {
-    return bar + 8 * (L::kStages + s);
-  }
-  __device__ __forceinline__ uint32_t q_bar() const {
-    return bar + 16 * L::kStages;
-  }
   __device__ __forceinline__ void q() const {
-    mbar_expect_tx(q_bar(), L::kQBytes);
+    mbar_expect_tx(this->once(), L::kQBytes);
     for (int h2 = 0; h2 < L::kHalves; ++h2)
-      tma_load_4d(sQ + h2 * L::kQHalf, tm_q, q_bar(), 64 * h2, hi, q0, bi);
+      tma_load_4d(sQ + h2 * L::kQHalf, tm_q, this->once(), 64 * h2, hi, q0,
+                  bi);
   }
   __device__ __forceinline__ void kv(int i) const {
-    const int s = i % L::kStages;
-    const uint32_t sK = sKV + s * L::kStageBytes;
-    // Round r of a stage waits for the consumers' release of round r - 1
-    // (parity 1 on a fresh barrier passes at once).
-    mbar_wait(empty(s), ((i / L::kStages) & 1) ^ 1);
-    mbar_expect_tx(full(s), L::kStageBytes);
+    const uint32_t sK = sKV + (i % L::kStages) * L::kStageBytes;
+    const uint32_t full = this->full(i);
+    this->wait_empty(i);
+    mbar_expect_tx(full, L::kStageBytes);
     for (int h2 = 0; h2 < L::kHalves; ++h2) {
-      tma_load_4d(sK + h2 * L::kKVHalf, tm_k, full(s), 64 * h2, kvh,
+      tma_load_4d(sK + h2 * L::kKVHalf, tm_k, full, 64 * h2, kvh,
                   i * L::kKeys, bi);
-      tma_load_4d(sK + L::kKVBytes + h2 * L::kKVHalf, tm_v, full(s), 64 * h2,
+      tma_load_4d(sK + L::kKVBytes + h2 * L::kKVHalf, tm_v, full, 64 * h2,
                   kvh, i * L::kKeys, bi);
     }
   }
@@ -753,11 +842,12 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[16][4], int k0,
 }
 
 // P as bf16 pairs: n8 chunks 2kk and 2kk + 1 of S are the register-A
-// fragment of the k16 step kk (keys 16 kk .. 16 kk + 15).
-__device__ __forceinline__ void to_p(uint32_t (&p)[8][4],
-                                     const float (&sc)[16][4]) {
+// fragment of the k16 step kk (columns 16 kk .. 16 kk + 15).
+template <int NK>
+__device__ __forceinline__ void to_p(uint32_t (&p)[NK / 2][4],
+                                     const float (&sc)[NK][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
+  for (int kk = 0; kk < NK / 2; ++kk)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int j = 2 * kk + (e >> 1), x = 2 * (e & 1);
@@ -796,8 +886,8 @@ __device__ __forceinline__ void fwd_consume(const FwdLoads<D>& ld,
   // products. Warpgroup 1 lets 0 start, and skips its last hand-over so
   // that every bar.sync meets exactly one bar.arrive.
   if (wg == 1) bar_arrive(1, 256);
-  mbar_wait(ld.q_bar(), 0);
-  mbar_wait(ld.full(0), 0);
+  mbar_wait(ld.once(), 0);
+  ld.wait_full(0);
   bar_sync(1 + wg, 256);
   issue_qk<D>(sc, sQw, stage_k(0));
   if (wg == 0 || n_tiles > 1) bar_arrive(2 - wg, 256);
@@ -806,7 +896,7 @@ __device__ __forceinline__ void fwd_consume(const FwdLoads<D>& ld,
   softmax_tile(sc, 0, row0, dm, m_r, l_r, alpha);
   to_p(p, sc);
   for (int i = 1; i < n_tiles; ++i) {
-    mbar_wait(ld.full(i % L::kStages), (i / L::kStages) & 1);
+    ld.wait_full(i);
     bar_sync(1 + wg, 256);
     issue_qk<D>(sc, sQw, stage_k(i));
     issue_pv<D>(o, p, alpha, stage_k(i - 1) + L::kKVBytes);
@@ -817,14 +907,14 @@ __device__ __forceinline__ void fwd_consume(const FwdLoads<D>& ld,
     wgmma_wait<0>();
     fence_regs(o);
     __syncwarp();
-    if (lane == 0) mbar_arrive(ld.empty((i - 1) % L::kStages));
+    if (lane == 0) mbar_arrive(ld.empty(i - 1));
     to_p(p, sc);
   }
   issue_pv<D>(o, p, alpha, stage_k(n_tiles - 1) + L::kKVBytes);
   wgmma_wait<0>();
   fence_regs(o);
   __syncwarp();
-  if (lane == 0) mbar_arrive(ld.empty((n_tiles - 1) % L::kStages));
+  if (lane == 0) mbar_arrive(ld.empty(n_tiles - 1));
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -871,7 +961,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_init(ld.full(s), 1);
       mbar_init(ld.empty(s), L::kConsumerWarps);
     }
-    mbar_init(ld.q_bar(), 1);
+    mbar_init(ld.once(), 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -970,7 +1060,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     dm.scale);
 }
 
-// ---------------------------------------------------------------- dK / dV
+// ------------------------------------------------------- fp32 dK / dV
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -979,6 +1069,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk,
                      T* __restrict__ dv, Dims dm) {
+  static_assert(sizeof(T) == 4, "bf16 runs flash_bwd_dkv_wgmma_kernel");
   constexpr int BQ = kTileQdkv;
   constexpr int LD = D + Pad<T>::v, LDQ = BQ + Pad<T>::v;
   constexpr int NQ = BQ / 8, ND = D / 8;
@@ -1062,6 +1153,242 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   write_rows<T, ND>(dk + kv_off, kv_stride, key0, dm.skv, dk_acc, dm.scale,
                     dm.scale);
   write_rows<T, ND>(dv + kv_off, kv_stride, key0, dm.skv, dv_acc, 1.f, 1.f);
+}
+
+// ------------------------------------------------------- bf16 dK / dV
+//
+// See the note at the top of the file. Every tile is stored as D / 64
+// halves of (rows x 128 B), 1024-byte aligned, as in the forward.
+template <int D>
+struct DkvTile {
+  static constexpr int kKeys = 128, kRows = 64, kStages = 4;
+  static constexpr int kConsumerWarps = 8;
+  static constexpr int kThreads = 32 * kConsumerWarps + 128;   // + producer
+  static constexpr int kHalves = D / 64;
+  static constexpr int kKVHalf = kKeys * 128, kQHalf = kRows * 128;
+  static constexpr int kKVBytes = kHalves * kKVHalf;   // the K or V tile
+  static constexpr int kQBytes = kHalves * kQHalf;     // a Q or dO tile
+  static constexpr int kStageBytes = 2 * kQBytes;
+  // Per stage its 64 rows' LSE·log2 e, then their delta (fp32), written by
+  // the producer's first warp with plain stores (TMA never writes here).
+  static constexpr int kRowsOff = 2 * kKVBytes + kStages * kStageBytes;
+  static constexpr int kBarOff = kRowsOff + kStages * 2 * kRows * 4;
+  // + the ring's barriers (the once barrier is K/V's); + slack to align.
+  static constexpr int kSmem = kBarOff + Ring<kStages>::kBarBytes + 1024;
+};
+
+// Shared-memory addresses of one CTA's tiles and barriers. Tile i of the
+// walk (q tile i % n_qt of head rep i / n_qt) uses stage i % kStages.
+template <int D>
+struct DkvRing : Ring<DkvTile<D>::kStages> {
+  using L = DkvTile<D>;
+  uint32_t sKV, sQ;
+
+  // Tile i's Q tile; its dO tile follows at + kQBytes.
+  __device__ __forceinline__ uint32_t stage(int i) const {
+    return sQ + (i % L::kStages) * L::kStageBytes;
+  }
+};
+
+// d (64 x 64) = A·Bᵀ over the head dim: A = this warpgroup's 64 keys of
+// the K or V tile (at sA, inside a 128-key half), B = a 64-row Q or dO
+// tile, both K-major. Issued, not committed.
+template <int D>
+__device__ __forceinline__ void issue_dkv_ss(float (&d)[8][4], uint32_t sA,
+                                             uint32_t sB) {
+  using L = DkvTile<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    // k16 step kk: half kk / 4, 32 bytes further per step inside it.
+    const uint32_t off = (kk & 3) * 32;
+    wgmma_ss(d, desc_b128(sA + (kk >> 2) * L::kKVHalf + off, 16, 1024),
+             desc_b128(sB + (kk >> 2) * L::kQHalf + off, 16, 1024), kk > 0);
+  }
+}
+
+// d (64 x D) += A·B: A (64 keys x 64 rows) from registers, four k16
+// fragments; B the same 64-row Q or dO tile read MN-major (the transpose
+// bit; LBO = the bytes between its 64-column halves, 16 rows = 2048 B per
+// k16 step). Issued, not committed.
+template <int D>
+__device__ __forceinline__ void issue_dkv_rs(float (&d)[D / 8][4],
+                                             const uint32_t (&a)[4][4],
+                                             uint32_t sB) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs(d, a[kk], desc_b128(sB + kk * 16 * 128, DkvTile<D>::kQHalf,
+                                 1024));
+}
+
+// One consumer warpgroup: keys k0 + 64 wg .. + 63 of the CTA, 16 per warp,
+// over every tile of the walk; then its rows of dK·scale and dV.
+template <int D>
+__device__ __forceinline__ void dkv_consume(const DkvRing<D>& ring,
+                                            const float* rows, int bi,
+                                            int kvh, int k0, int qt0,
+                                            int n_qt, int n_tiles,
+                                            __nv_bfloat16* __restrict__ dk,
+                                            __nv_bfloat16* __restrict__ dv,
+                                            const Dims& dm) {
+  using L = DkvTile<D>;
+  constexpr int ND = D / 8;
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wk0 = k0 + 64 * wg, key0 = wk0 + 16 * warp;
+  const uint32_t sK = ring.sKV + wg * 64 * 128, sV = sK + L::kKVBytes;
+  const float scale2 = dm.scale * kLog2e;
+  float dk_acc[ND][4], dv_acc[ND][4], st[8][4], dpt[8][4];
+  uint32_t pa[4][4], da[4][4];
+  zero(dk_acc);
+  zero(dv_acc);
+  zero(st);    // the first k16 step of each product ignores them (scale_d
+  zero(dpt);   // 0); zeroed once so that no read is of undefined values
+  if (n_tiles > 0) mbar_wait(ring.once(), 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int q0 = (qt0 + i % n_qt) * L::kRows;
+    ring.wait_full(i);
+    // Keys past skv, and (causal) a q tile wholly above this warpgroup's
+    // keys, add nothing: the stage is only released.
+    if (wk0 < dm.skv && !(dm.causal && q0 + L::kRows <= wk0)) {
+      const uint32_t sQ = ring.stage(i), sdO = sQ + L::kQBytes;
+      wgmma_fence();
+      issue_dkv_ss<D>(st, sK, sQ);
+      issue_dkv_ss<D>(dpt, sV, sdO);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+      const float* lse2 = rows + (i % L::kStages) * 2 * L::kRows;
+      const float* del = lse2 + L::kRows;
+      const bool masked = (dm.causal && q0 < key0 + 15) ||
+                          q0 + L::kRows > dm.sq || key0 + 16 > dm.skv;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l2 =
+            *reinterpret_cast<const float2*>(lse2 + 8 * j + 2 * t);
+        const float2 d2 =
+            *reinterpret_cast<const float2*>(del + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // p = exp(s·scale − lse) = 2^(s·scale·log2 e − lse·log2 e).
+          float p = ex2(fmaf(st[j][e], scale2, -((e & 1) ? l2.y : l2.x)));
+          if (masked) {
+            const int key = key0 + g + 8 * (e >> 1);
+            const int row = q0 + 8 * j + 2 * t + (e & 1);
+            if ((dm.causal && row < key) || row >= dm.sq || key >= dm.skv)
+              p = 0.f;
+          }
+          st[j][e] = p;
+          dpt[j][e] = p * (dpt[j][e] - ((e & 1) ? d2.y : d2.x));
+        }
+      }
+      to_p(pa, st);
+      to_p(da, dpt);
+      wgmma_fence();
+      issue_dkv_rs<D>(dv_acc, pa, sdO);
+      issue_dkv_rs<D>(dk_acc, da, sQ);
+      wgmma_commit();
+      wgmma_wait<0>();
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(ring.empty(i));
+  }
+  fence_regs(dk_acc);
+  fence_regs(dv_acc);
+  const size_t kv_stride = (size_t)dm.hkv * D;
+  const size_t kv_off = ((size_t)bi * dm.skv * dm.hkv + kvh) * D;
+  write_rows<__nv_bfloat16, ND>(dk + kv_off, kv_stride, key0, dm.skv, dk_acc,
+                                dm.scale, dm.scale);
+  write_rows<__nv_bfloat16, ND>(dv + kv_off, kv_stride, key0, dm.skv, dv_acc,
+                                1.f, 1.f);
+}
+
+// One CTA = 128 keys of one (batch, kv head); grid (b·hkv, key tiles), key
+// tile 0 (the most causal q tiles) first.
+template <int D>
+__global__ void __launch_bounds__(DkvTile<D>::kThreads, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_do,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv, Dims dm) {
+  using L = DkvTile<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t pad = ((smem_u32(smem_raw) + 1023u) & ~1023u) -
+                       smem_u32(smem_raw);
+  const uint32_t base = smem_u32(smem_raw) + pad;
+  const DkvRing<D> ring{{base + L::kBarOff}, base, base + 2 * L::kKVBytes};
+  float* rows = reinterpret_cast<float*>(smem_raw + pad + L::kRowsOff);
+  const int bi = blockIdx.x / dm.hkv, kvh = blockIdx.x % dm.hkv;
+  const int k0 = blockIdx.y * L::kKeys;
+  // Causal: q rows below k0 see none of these keys.
+  const int qt0 = dm.causal ? k0 / L::kRows : 0;
+  const int n_qt = max(0, (dm.sq + L::kRows - 1) / L::kRows - qt0);
+  const int n_tiles = dm.n_rep * n_qt;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kStages; ++s) {
+      // The producer warp's 32 lanes arrive on full: 31 after their LSE and
+      // delta stores, lane 0 with the stage's TMA bytes.
+      mbar_init(ring.full(s), 32);
+      mbar_init(ring.empty(s), L::kConsumerWarps);
+    }
+    mbar_init(ring.once(), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // One if/else for the two roles, never rejoined, so that ptxas can give
+  // each its own register count.
+  if (threadIdx.x >= 32 * L::kConsumerWarps) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    const int lane = threadIdx.x & 31;
+    if (threadIdx.x < 32 * L::kConsumerWarps + 32 && n_tiles > 0) {
+      if (lane == 0) {
+        mbar_expect_tx(ring.once(), 2 * L::kKVBytes);
+        for (int h2 = 0; h2 < L::kHalves; ++h2) {
+          tma_load_4d(ring.sKV + h2 * L::kKVHalf, &tm_k, ring.once(),
+                      64 * h2, kvh, k0, bi);
+          tma_load_4d(ring.sKV + L::kKVBytes + h2 * L::kKVHalf, &tm_v,
+                      ring.once(), 64 * h2, kvh, k0, bi);
+        }
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int hi = kvh * dm.n_rep + i / n_qt;
+        const int q0 = (qt0 + i % n_qt) * L::kRows;
+        ring.wait_empty(i);
+        // LSE and delta by plain loads (a tensor map would need 4·sq to be
+        // a multiple of 16 bytes); rows past sq get defined values, which
+        // the consumers' mask overrides.
+        const size_t off = ((size_t)bi * dm.h + hi) * dm.sq;
+        float* st = rows + (i % L::kStages) * 2 * L::kRows;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = lane + 32 * half, row = q0 + r;
+          const bool ok = row < dm.sq;
+          st[r] = ok ? lse[off + row] * kLog2e : 0.f;
+          st[L::kRows + r] = ok ? delta[off + row] : 0.f;
+        }
+        if (lane == 0) {
+          mbar_expect_tx(ring.full(i), L::kStageBytes);
+          const uint32_t sQ = ring.stage(i);
+          for (int h2 = 0; h2 < L::kHalves; ++h2) {
+            tma_load_4d(sQ + h2 * L::kQHalf, &tm_q, ring.full(i), 64 * h2,
+                        hi, q0, bi);
+            tma_load_4d(sQ + L::kQBytes + h2 * L::kQHalf, &tm_do,
+                        ring.full(i), 64 * h2, hi, q0, bi);
+          }
+        } else {
+          mbar_arrive(ring.full(i));
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    dkv_consume<D>(ring, rows, bi, kvh, k0, qt0, n_qt, n_tiles, dk, dv, dm);
+  }
 }
 
 // ---------------------------------------------------------------- launchers
@@ -1197,6 +1524,29 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t bwd_dkv_wgmma(const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse,
+                          const void* delta, void* dk, void* dv, int b,
+                          int sq, int skv, int h, int hkv, int causal,
+                          float scale, cudaStream_t st) {
+  using L = DkvTile<D>;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!tensor_map(&tq, q, D, h, sq, b, L::kRows) ||
+      !tensor_map(&tdo, dout, D, h, sq, b, L::kRows) ||
+      !tensor_map(&tk, k, D, hkv, skv, b, L::kKeys) ||
+      !tensor_map(&tv, v, D, hkv, skv, b, L::kKeys))
+    return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(flash_bwd_dkv_wgmma_kernel<D>, L::kSmem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkv_wgmma_kernel<D><<<dim3(b * hkv, tiles(skv, L::kKeys)),
+                                  L::kThreads, L::kSmem, st>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), dims(sq, skv, h, hkv, causal, scale));
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
@@ -1284,7 +1634,14 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
                  causal, scale, st)
 }
 
-// The same inputs -> dk, dv like k, v.
+// Dynamic shared memory of the bf16 dK/dV kernel for head dim d, for
+// reports beside ptxas's register counts.
+extern "C" int flash_bwd_dkv_smem_bytes(int d) {
+  return d == 64 ? DkvTile<64>::kSmem : d == 128 ? DkvTile<128>::kSmem : -1;
+}
+
+// The same inputs -> dk, dv like k, v: flash_bwd_dkv_wgmma_kernel (bf16)
+// or the CUDA-core flash_bwd_dkv_kernel (fp32).
 extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
                                     const void* v, const void* dout,
                                     const void* lse, const void* delta,
@@ -1294,6 +1651,22 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
                                     void* stream) {
   if (!valid(b, sq, skv, h, hkv)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(bwd_dkv, q, k, v, dout, lse, delta, dk, dv, b, sq, skv, h,
-                 hkv, causal, scale, st)
+  switch (d) {
+    case 64:
+      return (int)(is_bf16 ? bwd_dkv_wgmma<64>(q, k, v, dout, lse, delta, dk,
+                                               dv, b, sq, skv, h, hkv, causal,
+                                               scale, st)
+                           : bwd_dkv<float, 64>(q, k, v, dout, lse, delta, dk,
+                                                dv, b, sq, skv, h, hkv,
+                                                causal, scale, st));
+    case 128:
+      return (int)(is_bf16 ? bwd_dkv_wgmma<128>(q, k, v, dout, lse, delta, dk,
+                                                dv, b, sq, skv, h, hkv,
+                                                causal, scale, st)
+                           : bwd_dkv<float, 128>(q, k, v, dout, lse, delta,
+                                                 dk, dv, b, sq, skv, h, hkv,
+                                                 causal, scale, st));
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -86,6 +86,17 @@ def ragged_paged_attention_unified_reference(
     return torch.where(valid[:, None, None], out, torch.zeros_like(out))
 
 
+# Head dims the K5/K6 kernels are instantiated for (csrc/paged_attention.cu).
+HEAD_DIMS = (64, 128)
+
+
+def kernel_fits(head_dim: int, n_heads: int, n_kv_heads: int) -> bool:
+    """True when K5/K6 take this attention shape: head dim 64 or 128,
+    K | H and H/K <= 32."""
+    return (head_dim in HEAD_DIMS and n_kv_heads > 0
+            and n_heads % n_kv_heads == 0 and n_heads // n_kv_heads <= 32)
+
+
 def _check_args(q, k_pages, v_pages, ints):
     """Checks shared by both kernels: q (..., H, hd) and the pages in
     bf16/fp32 alike, the head dims the kernels instantiate, GQA grouping,
@@ -101,9 +112,9 @@ def _check_args(q, k_pages, v_pages, ints):
         if tuple(t.shape) != (K, P, ps, hd):
             raise ValueError(f"{name} shape {tuple(t.shape)} != "
                              f"{(K, P, ps, hd)}")
-    if hd_k != hd or hd not in (64, 128):
+    if hd_k != hd or hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd}: kernel takes 64/128")
-    if H % K or H // K > 32:
+    if not kernel_fits(hd, H, K):
         raise ValueError(f"H={H}, K={K}: need K | H and H/K <= 32")
     for name, t, ndim in ints:
         if t.dtype != torch.int32 or t.dim() != ndim:

@@ -9,7 +9,9 @@ bf16 2e-2, and count their launches; the unified engine goes through K5
 on every tick, the split engine through K6 on every runner step, and its
 decode dispatch never synchronises with the device; a train step
 launches the flash kernels once or twice per layer, as its remat policy
-says.
+says; a head-dim-96 engine runs the plain versions on the card, as the
+JAX runner runs its reference there, and attention at head dim 256, where
+the JAX rule runs a Pallas kernel the port lacks, raises.
 """
 
 import numpy as np
@@ -215,6 +217,63 @@ def test_flash_kernels_match_plain_versions(cuda, dtype, tol, grad_tol, d,
         assert got.dtype == dtype
         torch.testing.assert_close(got.float(), want.float(), rtol=grad_tol,
                                    atol=grad_tol)
+
+
+def test_auto_attention_d256_raises_and_head_dim_96_engine_runs(cuda):
+    """attention(impl="auto") at head dim 256 refuses on the card (the JAX
+    rule picks its Pallas flash kernel there, the port has none yet) and
+    runs flash at head dim 128. A head-dim-96 engine, unified and split,
+    runs the plain versions on the card as the JAX runner runs its
+    reference: it launches neither K5 nor K6 and decodes greedily as the
+    naive forward does."""
+    from ray_tpu_torch.llm.sampling import SamplingParams
+    from ray_tpu_torch.llm.serving import LLMConfig, build_engine
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops import attention as ta
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    rng = np.random.default_rng(4)
+    for d in (256, 128):
+        q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+                   .to("cuda", torch.bfloat16)
+                   for s in ((1, 300, 4, d), (1, 300, 2, d),
+                             (1, 300, 2, d)))
+        if d == 256:
+            with pytest.raises(ValueError, match="queue 2 D"):
+                ta.attention(q, k, v)
+            continue
+        ta.flash_fwd.launches = 0
+        out = ta.attention(q, k, v)
+        torch.cuda.synchronize()
+        assert ta.flash_fwd.launches == 1
+        torch.testing.assert_close(out, ta.mha_reference(q, k, v),
+                                   rtol=2e-2, atol=2e-2)
+    config = llama.LlamaConfig.tiny(d_model=192, n_heads=2, n_kv_heads=1,
+                                    dtype=torch.float32)
+    assert config.head_dim == 96
+    prompts = [[1, 2, 3] * 10, [7, 8]]
+    params = llama.init_params(config, torch.Generator("cuda").manual_seed(0),
+                               "cuda")
+    want = []
+    for p in prompts:
+        tokens = list(p)
+        for _ in range(5):
+            logits = llama.forward(params, torch.tensor([tokens],
+                                                        device="cuda"),
+                                   config)
+            tokens.append(int(torch.argmax(logits[0, -1])))
+        want.append(tokens[len(p):])
+    for unified in (True, False):
+        engine = build_engine(LLMConfig(
+            model_config=config, block_size=16, num_kv_blocks=64,
+            max_batch_size=4, prefill_chunk=32, device=cuda,
+            unified_ticks=unified), params=params)
+        pa.ragged_paged_attention.launches = 0
+        pa.ragged_paged_attention_unified.launches = 0
+        outs = engine.generate(prompts, SamplingParams(max_tokens=5))
+        assert [o.output_token_ids for o in outs] == want
+        assert pa.ragged_paged_attention.launches == 0
+        assert pa.ragged_paged_attention_unified.launches == 0
 
 
 @pytest.mark.parametrize("policy,fwd_per_layer", [("dots", 2), ("flash", 1)])
