@@ -12,8 +12,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
                off for matmuls and cuDNN.
   2. build     nvcc builds ray_tpu_torch/ops/csrc/*.cu (ops/_build.py);
                prints ptxas's registers and spills per kernel and the
-               dynamic shared memory of the bf16 flash forward and dK/dV
-               kernels.
+               dynamic shared memory of the bf16 flash forward, dQ and
+               dK/dV kernels.
   3. kernel    the K5 kernel (unified ragged paged attention) and the K6
                kernel (rectangular ragged paged attention) against their
                plain PyTorch versions on the card at Llama-3-8B attention
@@ -63,12 +63,12 @@ causal sq < skv (512/1024), non-causal (1024/1536), and the long regimes
 (forward 16384, backward 8192), timing each beside
 `scaled_dot_product_attention` (library_ms; the port never calls it).
 fp32 tolerance 1e-5 for out/LSE and 1e-4 for gradients, bf16 2e-2.
-`--turns A,B,...` then times the bf16 flash forward and dK/dV pass of each
-listed tree's ray_tpu_torch (a directory holding the package, e.g. a
-parent commit's copy unpacked in a git-ignored directory), one child
-process per entry, in the order given (TURN_CASES: the forward at train,
-gqa4 and long_fwd, dK/dV at train and long_bwd): run parent, change,
-change, parent to compare two versions on one card.
+`--turns A,B,...` then times the bf16 flash kernels of each listed tree's
+ray_tpu_torch (a directory holding the package, e.g. a parent commit's
+copy unpacked in a git-ignored directory), one child process per entry,
+in the order given (TURN_CASES: the forward at train, gqa4 and long_fwd,
+dQ and dK/dV at train and long_bwd): run parent, change, change, parent
+to compare two versions on one card.
 Prints a `{"kernels": [...]}` line, then, last, the device line
 `{"ok": true, "device": {...}}`; `--out FILE` also writes every result as
 JSON. Imports nothing of jax or ray_tpu.
@@ -142,10 +142,12 @@ def phase_build():
             else:
                 name = entry[1][:60]
         elif any(w in line for w in ("registers", "spill", "error",
-                                     "warning")):
+                                     "warning", "Performance")):
             log(f"  ptxas {name}: {line.strip()}")
     smem = {"flash_fwd_wgmma_kernel": {
         d: lib.flash_fwd_smem_bytes(d, 1) for d in (64, 128)},
+        "flash_bwd_dq_wgmma_kernel": {
+        d: lib.flash_bwd_dq_smem_bytes(d) for d in (64, 128)},
         "flash_bwd_dkv_wgmma_kernel": {
         d: lib.flash_bwd_dkv_smem_bytes(d) for d in (64, 128)}}
     for kernel, by_d in smem.items():
@@ -154,6 +156,7 @@ def phase_build():
     log(f"build: {wall:.2f} s (nvcc {_build.build_seconds or 0:.2f} s)")
     RESULTS["build_s"] = wall
     RESULTS["flash_fwd_smem_bytes"] = smem["flash_fwd_wgmma_kernel"]
+    RESULTS["flash_bwd_dq_smem_bytes"] = smem["flash_bwd_dq_wgmma_kernel"]
     RESULTS["flash_bwd_dkv_smem_bytes"] = smem["flash_bwd_dkv_wgmma_kernel"]
 
 
@@ -489,11 +492,16 @@ def _flash_cases(torch):
                                  attn.flash_bwd_dkv_reference(*args), tol)
                 g_in = [x.detach().requires_grad_() for x in (qt, kt, vt)]
                 dout_t = dout.transpose(1, 2).contiguous()
+                out_t = sdpa(*g_in)
 
-                def sdpa_fwd_bwd():
-                    sdpa(*g_in).backward(dout_t)
+                # SDPA's backward alone, on a kept graph: one autograd call
+                # of a few launches, so a slow host inflates it less than
+                # the difference of two timings would.
+                def sdpa_bwd():
+                    torch.autograd.grad(out_t, g_in, dout_t,
+                                        retain_graph=True)
 
-                lib_bwd = _time_auto(torch, sdpa_fwd_bwd) - lib_fwd
+                lib_bwd = _time_auto(torch, sdpa_bwd)
                 rin = ("q", "kv", "kv", "q", "rows", "rows")
                 rows.append(row(
                     "flash_bwd_dq", case, err_dq,
@@ -507,7 +515,7 @@ def _flash_cases(torch):
                     lambda: attn.flash_bwd_dkv_reference(*args),
                     _flash_bound(dims, causal, dname, 4, rin, ("kv", "kv")),
                     lib_bwd))
-                del g_in, dout_t, dq, dk, dv
+                del g_in, dout_t, out_t, dq, dk, dv
             del q, k, v, qt, kt, vt, ref_out, ref_lse
             torch.cuda.empty_cache()
     return rows
@@ -516,7 +524,8 @@ def _flash_cases(torch):
 # (kernel, FLASH_CASES case) pairs timed in turns against another tree's
 # ray_tpu_torch (--turns).
 TURN_CASES = (("flash_fwd", "train"), ("flash_fwd", "gqa4"),
-              ("flash_fwd", "long_fwd"), ("flash_bwd_dkv", "train"),
+              ("flash_fwd", "long_fwd"), ("flash_bwd_dq", "train"),
+              ("flash_bwd_dq", "long_bwd"), ("flash_bwd_dkv", "train"),
               ("flash_bwd_dkv", "long_bwd"))
 
 
@@ -524,11 +533,11 @@ def _turn_label(kernel, case):
     return f"{kernel}/{case}"
 
 
-def _fwd_times(torch):
-    """Child of --turns: the bf16 flash forward (with LSE) and dK/dV pass
-    of whichever ray_tpu_torch this process imports, at TURN_CASES:
-    CUDA-event ms and the worst error against the plain version (dK/dV on
-    the plain forward's LSE and a seeded out cotangent). Prints one TURN
+def _turn_times(torch):
+    """Child of --turns: the bf16 flash kernels of whichever ray_tpu_torch
+    this process imports, at TURN_CASES: CUDA-event ms and the worst error
+    against the plain version (the forward with LSE; dQ and dK/dV on the
+    plain forward's LSE and a seeded out cotangent). Prints one TURN
     line."""
     from ray_tpu_torch.ops import attention as attn
     from ray_tpu_torch.ops import _build
@@ -552,10 +561,12 @@ def _fwd_times(torch):
             delta = (dout.float() * ref_out.float()).sum(-1).transpose(
                 1, 2).contiguous()
             args = (q, k, v, dout, ref_lse, delta, causal, scale)
-            ref = attn.flash_bwd_dkv_reference(*args)
+            ref = getattr(attn, kernel + "_reference")(*args)
             tol = GRAD_TOLERANCE["bfloat16"]
         fn = getattr(attn, kernel)
         got = fn(*args)
+        if torch.is_tensor(got):   # dQ: one tensor
+            got, ref = (got,), (ref,)
         torch.cuda.synchronize()
         err = _close(torch, f"turn {kernel} {name}", got, ref, tol)
         res[_turn_label(kernel, name)] = dict(ms=_time_auto(
@@ -567,16 +578,16 @@ def _fwd_times(torch):
 
 
 def run_turns(trees):
-    """The bf16 flash forward and dK/dV pass of each tree in `trees` (a
-    directory holding a ray_tpu_torch package, e.g. a parent commit's
-    unpacked copy), one child process each, in the order given (parent,
-    change, change, parent): kernel ms per TURN_CASES pair."""
+    """The bf16 flash kernels of each tree in `trees` (a directory holding
+    a ray_tpu_torch package, e.g. a parent commit's unpacked copy), one
+    child process each, in the order given (parent, change, change,
+    parent): kernel ms per TURN_CASES pair."""
     here = os.path.abspath(__file__)
     rows = []
     for tree in trees:
         proc = subprocess.run(
-            [sys.executable, here, "--phases", "device", "--fwd-times-in",
-             tree], capture_output=True, text=True, timeout=900)
+            [sys.executable, here, "--phases", "device", "--turn-in", tree],
+            capture_output=True, text=True, timeout=900)
         line = next((x for x in proc.stdout.splitlines()
                      if x.startswith("TURN ")), None)
         if proc.returncode != 0 or line is None:
@@ -1290,7 +1301,7 @@ def kernels_line() -> dict:
               "flash_attention.cu",
               f"{attn}:520 (K1), {attn}:553 (K2)", "train",
               train.get("flash_fwd")),
-        entry("flash_bwd_dq", "flash_bwd_dq", "flash_bwd_dq_kernel",
+        entry("flash_bwd_dq", "flash_bwd_dq", "flash_bwd_dq_wgmma_kernel",
               "flash_attention.cu",
               f"{attn}:616 (K3 dQ), {attn}:738 (K4 dQ)", "train_bwd",
               train.get("flash_bwd_dq")),
@@ -1310,10 +1321,10 @@ def main(argv=None) -> int:
                     "kernels at " + ", ".join(_turn_label(*c) for c in
                                               TURN_CASES)
                     + " in this order")
-    ap.add_argument("--fwd-times-in", help=argparse.SUPPRESS)
+    ap.add_argument("--turn-in", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    if args.fwd_times_in:
-        sys.path.insert(0, os.path.abspath(args.fwd_times_in))
+    if args.turn_in:
+        sys.path.insert(0, os.path.abspath(args.turn_in))
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(ALL_PHASES)
     if unknown:
@@ -1338,8 +1349,8 @@ def main(argv=None) -> int:
         else:
             fn(torch)
         log(f"phase {name}: ok in {time.perf_counter() - t0:.1f} s")
-    if args.fwd_times_in:
-        _fwd_times(torch)
+    if args.turn_in:
+        _turn_times(torch)
         return 0
     if args.turns:
         run_turns(args.turns.split(","))

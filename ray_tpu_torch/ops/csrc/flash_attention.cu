@@ -1,10 +1,12 @@
-// Flash attention for Hopper (sm_90a): forward, dQ and dK/dV, three kernels.
+// Flash attention for Hopper (sm_90a): forward, dQ and dK/dV, three passes.
 //
 // Replaces, in ray_tpu/ops/attention.py (kernel ids of ROADMAP.md):
-//   * flash_fwd_kernel: K1 `_flash_fwd_kernel`/`_nolse` (call :520) and K2
+//   * flash_fwd_wgmma_kernel (bf16) and flash_fwd_kernel (fp32): K1
+//     `_flash_fwd_kernel`/`_nolse` (call :520) and K2
 //     `_flash_fwd_kernel_tiled`/`_nolse` (call :553);
-//   * flash_bwd_dq_kernel: K3 `_flash_bwd_dq_kernel_resident` (call :616)
-//     and K4 `_flash_bwd_dq_kernel` (call :738);
+//   * flash_bwd_dq_wgmma_kernel (bf16) and flash_bwd_dq_kernel (fp32): K3
+//     `_flash_bwd_dq_kernel_resident` (call :616) and K4
+//     `_flash_bwd_dq_kernel` (call :738);
 //   * flash_bwd_dkv_wgmma_kernel (bf16) and flash_bwd_dkv_kernel (fp32): K3
 //     `_flash_bwd_dkv_kernel_resident` (call :634) and K4
 //     `_flash_bwd_dkv_kernel` (call :771).
@@ -144,23 +146,47 @@
 //     consumer warp instead of the producer warpgroup ~1.25x (PERF.md);
 //   * the epilogue writes dK·scale and dV from registers in bf16, for keys
 //     < skv only.
-// fp32 (forward, dQ and dK/dV) and the bf16 dQ keep the warp-level design:
+// The bf16 dQ pass (flash_bwd_dq_wgmma_kernel, head dims 64 and 128) is
+// the dK/dV pass with the roles of rows and keys swapped:
+//   * one CTA = 128 query rows of one (batch, head): two consumer
+//     warpgroups of 64 rows each plus one producer warpgroup (setmaxnreg
+//     24/240). Q and dO arrive once per CTA by TMA; 64-key K and V tiles
+//     stream through a ring of 4 stages (the kv head hi / n_rep; under
+//     causal the walk stops at min(skv, q0 + 128)). The heaviest causal
+//     row tiles start first;
+//   * each warpgroup computes S = Q·Kᵀ and dP = dO·Vᵀ with its rows as M
+//     (wgmma m64n64k16, both K-major, the dK/dV pass's issue_ss64), then P
+//     = 2^(S·scale·log2 e − LSE·log2 e) and dS = P∘(dP − delta), rounded
+//     to bf16x2 in place as the register-A fragments of dQ += dS·K
+//     (m64n{64|128}k16, the K tile read MN-major: issue_rs64). Neither P
+//     nor dS touches shared memory;
+//   * each consumer thread reads its two rows' LSE·log2 e and delta once,
+//     by plain loads, before the walk (rows start 16-byte aligned only
+//     when sq % 4 == 0); rows past sq, keys past skv and the causal
+//     diagonal are masked explicitly, per warp, as in dK/dV. A tile wholly
+//     above a warpgroup's rows (causal) and a warpgroup wholly past sq
+//     compute nothing and only release the stage;
+//   * per consumer thread at d = 128: dQ takes 64 fp32 registers, S and
+//     dP 32 + 32, the dS fragment 16, so the forward's intra-warpgroup
+//     overlap fits without a spill: S(i+1) and dP(i+1) are issued as one
+//     wgmma group before dQ += dS(i)·K(i) as another, and dS(i+1) is
+//     computed while the dQ product is in flight. The loop is peeled so
+//     that no wgmma sits under a branch (ptxas serialises them otherwise).
+//     Ping-pong of the two warpgroups took 1.3-1.6x as long (PERF.md);
+//   * the epilogue writes dQ·scale from registers in bf16, rows < sq only.
+// fp32 (forward, dQ and dK/dV) keeps the warp-level design:
 //   * a block owns 64 query rows (forward, dQ) or 64 keys (dK/dV) and
 //     stages each K/V (or Q/dO) tile in shared memory ONCE for all of them;
 //     each of its 4 warps owns 16 of those rows;
-//   * bf16 backward runs the products on the tensor cores, mma.sync
-//     m16n8k16 with fp32 accumulators, fragments loaded with ldmatrix
-//     (.trans where the contraction runs along a tile's rows); the
-//     probabilities (and ds) go through shared memory as bf16 for the
-//     second product;
-//   * fp32 runs the same tiles and fragment layout on the CUDA cores (FMA),
-//     so the softmax and masking code is shared and fp32 stays exact to
-//     fp32 rounding (no TF32);
+//   * the products run on the CUDA cores (FMA) in the mma.sync fragment
+//     layout, so the masking code matches the bf16 kernels' and fp32 stays
+//     exact to fp32 rounding (no TF32); the probabilities (and ds) go
+//     through shared memory for the second product;
 //   * causal blocks skip key tiles above the diagonal (forward, dQ) and q
 //     tiles below it (dK/dV), and the heaviest tiles are scheduled first.
-// Not done yet (later work, see PERF.md): wgmma and TMA for the bf16 dQ,
-// ping-pong of the dK/dV warpgroups, a persistent tile scheduler that
-// hides each CTA's prologue, a TMA store of the outputs.
+// Not done yet (later work, see PERF.md): ping-pong of the dK/dV
+// warpgroups, a persistent tile scheduler that hides each CTA's prologue,
+// a TMA store of the outputs.
 //
 // Plain C interface, bound with ctypes: each launcher returns the
 // cudaError_t of its launch; the Python wrappers allocate every output and
@@ -170,6 +196,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -184,11 +212,9 @@ struct Dims {
   float scale;
 };
 
-// Shared-memory rows are padded by 16 bytes so that the 8 rows an ldmatrix
-// (or a quad of FMA loads) touches fall in different banks.
-template <typename T> struct Pad {
-  static constexpr int v = 16 / (int)sizeof(T);
-};
+// fp32 shared-memory rows are padded by 16 bytes (4 floats) so that the 8
+// rows a quad of FMA loads touches fall in different banks.
+constexpr int kPad = 4;
 
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
@@ -216,74 +242,13 @@ __device__ __forceinline__ void load_rows(T* dst, int ld,
 
 // ---------------------------------------------------------------- warp GEMM
 //
-// acc += A · B for one warp: A is its 16 x K tile (row-major, row stride
-// lda), B a K x (8 NT) tile, acc the 16 x (8 NT) result in the mma.sync
-// accumulator layout: with g = lane / 4 and t = lane % 4,
+// acc += A · B for one warp on the CUDA cores (fp32): A is its 16 x K tile
+// (row-major, row stride lda), B a K x (8 NT) tile, acc the 16 x (8 NT)
+// result in the mma.sync accumulator layout (also that of a wgmma
+// accumulator's 16 rows per warp): with g = lane / 4 and t = lane % 4,
 //   acc[j][0..1] = C[g][8j + 2t + 0..1], acc[j][2..3] = C[g + 8][same].
 // B_KCONTIG: B(k, n) = b[n * ldb + k] (a tile whose rows are B's columns,
 // as K in Q·Kᵀ); otherwise B(k, n) = b[k * ldb + n] (as V in P·V).
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2],
-                                              const void* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(addr)
-      : "memory");
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4],
-                                         const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// bf16: tensor cores.
-template <int NT, int K, bool B_KCONTIG>
-__device__ __forceinline__ void warp_mma(float (&acc)[NT][4],
-                                         const __nv_bfloat16* a, int lda,
-                                         const __nv_bfloat16* b, int ldb) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    uint32_t af[4];
-    ldsm_x4(af, a + (lane & 15) * lda + k0 + (lane >> 4) * 8);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      uint32_t bf[2];
-      if (B_KCONTIG)
-        ldsm_x2(bf, b + (8 * j + (lane & 7)) * ldb + k0 +
-                        ((lane >> 3) & 1) * 8);
-      else
-        ldsm_x2_trans(bf, b + (k0 + (lane & 15)) * ldb + 8 * j);
-      mma_bf16(acc[j], af, bf);
-    }
-  }
-}
-
-// fp32: CUDA cores, same accumulator layout.
 template <int NT, int K, bool B_KCONTIG>
 __device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const float* a,
                                          int lda, const float* b, int ldb) {
@@ -364,7 +329,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
                  float* __restrict__ lse, Dims dm) {
   static_assert(sizeof(T) == 4, "bf16 runs flash_fwd_wgmma_kernel");
-  constexpr int LD = D + Pad<T>::v, LDP = kTileK + Pad<T>::v;
+  constexpr int LD = D + kPad, LDP = kTileK + kPad;
   constexpr int NK = kTileK / 8, ND = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sQ = reinterpret_cast<T*>(smem_raw);
@@ -979,7 +944,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// ---------------------------------------------------------------- dQ
+// ------------------------------------------------------------ fp32 dQ
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -988,7 +953,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
                     Dims dm) {
-  constexpr int LD = D + Pad<T>::v, LDP = kTileK + Pad<T>::v;
+  static_assert(sizeof(T) == 4, "bf16 runs flash_bwd_dq_wgmma_kernel");
+  constexpr int LD = D + kPad, LDP = kTileK + kPad;
   constexpr int NK = kTileK / 8, ND = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sQ = reinterpret_cast<T*>(smem_raw);
@@ -1071,7 +1037,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      T* __restrict__ dv, Dims dm) {
   static_assert(sizeof(T) == 4, "bf16 runs flash_bwd_dkv_wgmma_kernel");
   constexpr int BQ = kTileQdkv;
-  constexpr int LD = D + Pad<T>::v, LDQ = BQ + Pad<T>::v;
+  constexpr int LD = D + kPad, LDQ = BQ + kPad;
   constexpr int NQ = BQ / 8, ND = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sK = reinterpret_cast<T*>(smem_raw);
@@ -1155,6 +1121,43 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   write_rows<T, ND>(dv + kv_off, kv_stride, key0, dm.skv, dv_acc, 1.f, 1.f);
 }
 
+// ------------------------------------------------ bf16 backward products
+//
+// The two products of the backward passes, for one warpgroup, over tiles
+// stored as 64-column halves of (rows x 128 B): a 128-row tile (the dK/dV
+// pass's K or V, the dQ pass's Q or dO) has its halves 16 KB apart, a
+// 64-row tile (a staged Q or dO tile in dK/dV, a staged K or V tile in dQ)
+// 8 KB apart.
+constexpr int kHalf128 = 128 * 128, kHalf64 = 64 * 128;
+
+// d (64 x 64) = A·Bᵀ over the head dim: A = this warpgroup's 64 rows of a
+// 128-row tile (at sA, inside its half), B = a 64-row tile, both K-major.
+// Issued, not committed.
+template <int D>
+__device__ __forceinline__ void issue_ss64(float (&d)[8][4], uint32_t sA,
+                                           uint32_t sB) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    // k16 step kk: half kk / 4, 32 bytes further per step inside it.
+    const uint32_t off = (kk & 3) * 32;
+    wgmma_ss(d, desc_b128(sA + (kk >> 2) * kHalf128 + off, 16, 1024),
+             desc_b128(sB + (kk >> 2) * kHalf64 + off, 16, 1024), kk > 0);
+  }
+}
+
+// d (64 x D) += A·B: A (64 x 64) from registers, four k16 fragments; B a
+// 64-row tile read MN-major (the transpose bit; LBO = the bytes between
+// its 64-column halves, 16 rows = 2048 B per k16 step). Issued, not
+// committed.
+template <int D>
+__device__ __forceinline__ void issue_rs64(float (&d)[D / 8][4],
+                                           const uint32_t (&a)[4][4],
+                                           uint32_t sB) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs(d, a[kk], desc_b128(sB + kk * 16 * 128, kHalf64, 1024));
+}
+
 // ------------------------------------------------------- bf16 dK / dV
 //
 // See the note at the top of the file. Every tile is stored as D / 64
@@ -1165,7 +1168,7 @@ struct DkvTile {
   static constexpr int kConsumerWarps = 8;
   static constexpr int kThreads = 32 * kConsumerWarps + 128;   // + producer
   static constexpr int kHalves = D / 64;
-  static constexpr int kKVHalf = kKeys * 128, kQHalf = kRows * 128;
+  static constexpr int kKVHalf = kHalf128, kQHalf = kHalf64;
   static constexpr int kKVBytes = kHalves * kKVHalf;   // the K or V tile
   static constexpr int kQBytes = kHalves * kQHalf;     // a Q or dO tile
   static constexpr int kStageBytes = 2 * kQBytes;
@@ -1177,65 +1180,32 @@ struct DkvTile {
   static constexpr int kSmem = kBarOff + Ring<kStages>::kBarBytes + 1024;
 };
 
-// Shared-memory addresses of one CTA's tiles and barriers. Tile i of the
-// walk (q tile i % n_qt of head rep i / n_qt) uses stage i % kStages.
-template <int D>
-struct DkvRing : Ring<DkvTile<D>::kStages> {
-  using L = DkvTile<D>;
-  uint32_t sKV, sQ;
+// Shared-memory addresses of one backward CTA's tiles and barriers: the
+// tile pair it loads once at sRes (K/V for dK/dV, Q/dO for dQ), then the
+// ring's stages from sStages; tile i of the walk uses stage i % kStages,
+// its second tile at + kStageBytes / 2.
+template <class L>
+struct TileRing : Ring<L::kStages> {
+  uint32_t sRes, sStages;
 
-  // Tile i's Q tile; its dO tile follows at + kQBytes.
   __device__ __forceinline__ uint32_t stage(int i) const {
-    return sQ + (i % L::kStages) * L::kStageBytes;
+    return sStages + (i % L::kStages) * L::kStageBytes;
   }
 };
-
-// d (64 x 64) = A·Bᵀ over the head dim: A = this warpgroup's 64 keys of
-// the K or V tile (at sA, inside a 128-key half), B = a 64-row Q or dO
-// tile, both K-major. Issued, not committed.
-template <int D>
-__device__ __forceinline__ void issue_dkv_ss(float (&d)[8][4], uint32_t sA,
-                                             uint32_t sB) {
-  using L = DkvTile<D>;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    // k16 step kk: half kk / 4, 32 bytes further per step inside it.
-    const uint32_t off = (kk & 3) * 32;
-    wgmma_ss(d, desc_b128(sA + (kk >> 2) * L::kKVHalf + off, 16, 1024),
-             desc_b128(sB + (kk >> 2) * L::kQHalf + off, 16, 1024), kk > 0);
-  }
-}
-
-// d (64 x D) += A·B: A (64 keys x 64 rows) from registers, four k16
-// fragments; B the same 64-row Q or dO tile read MN-major (the transpose
-// bit; LBO = the bytes between its 64-column halves, 16 rows = 2048 B per
-// k16 step). Issued, not committed.
-template <int D>
-__device__ __forceinline__ void issue_dkv_rs(float (&d)[D / 8][4],
-                                             const uint32_t (&a)[4][4],
-                                             uint32_t sB) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_rs(d, a[kk], desc_b128(sB + kk * 16 * 128, DkvTile<D>::kQHalf,
-                                 1024));
-}
 
 // One consumer warpgroup: keys k0 + 64 wg .. + 63 of the CTA, 16 per warp,
 // over every tile of the walk; then its rows of dK·scale and dV.
 template <int D>
-__device__ __forceinline__ void dkv_consume(const DkvRing<D>& ring,
-                                            const float* rows, int bi,
-                                            int kvh, int k0, int qt0,
-                                            int n_qt, int n_tiles,
-                                            __nv_bfloat16* __restrict__ dk,
-                                            __nv_bfloat16* __restrict__ dv,
-                                            const Dims& dm) {
+__device__ __forceinline__ void dkv_consume(
+    const TileRing<DkvTile<D>>& ring, const float* rows, int bi, int kvh,
+    int k0, int qt0, int n_qt, int n_tiles, __nv_bfloat16* __restrict__ dk,
+    __nv_bfloat16* __restrict__ dv, const Dims& dm) {
   using L = DkvTile<D>;
   constexpr int ND = D / 8;
   const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int wk0 = k0 + 64 * wg, key0 = wk0 + 16 * warp;
-  const uint32_t sK = ring.sKV + wg * 64 * 128, sV = sK + L::kKVBytes;
+  const uint32_t sK = ring.sRes + wg * 64 * 128, sV = sK + L::kKVBytes;
   const float scale2 = dm.scale * kLog2e;
   float dk_acc[ND][4], dv_acc[ND][4], st[8][4], dpt[8][4];
   uint32_t pa[4][4], da[4][4];
@@ -1252,8 +1222,8 @@ __device__ __forceinline__ void dkv_consume(const DkvRing<D>& ring,
     if (wk0 < dm.skv && !(dm.causal && q0 + L::kRows <= wk0)) {
       const uint32_t sQ = ring.stage(i), sdO = sQ + L::kQBytes;
       wgmma_fence();
-      issue_dkv_ss<D>(st, sK, sQ);
-      issue_dkv_ss<D>(dpt, sV, sdO);
+      issue_ss64<D>(st, sK, sQ);
+      issue_ss64<D>(dpt, sV, sdO);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(st);
@@ -1285,8 +1255,8 @@ __device__ __forceinline__ void dkv_consume(const DkvRing<D>& ring,
       to_p(pa, st);
       to_p(da, dpt);
       wgmma_fence();
-      issue_dkv_rs<D>(dv_acc, pa, sdO);
-      issue_dkv_rs<D>(dk_acc, da, sQ);
+      issue_rs64<D>(dv_acc, pa, sdO);
+      issue_rs64<D>(dk_acc, da, sQ);
       wgmma_commit();
       wgmma_wait<0>();
     }
@@ -1320,7 +1290,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t pad = ((smem_u32(smem_raw) + 1023u) & ~1023u) -
                        smem_u32(smem_raw);
   const uint32_t base = smem_u32(smem_raw) + pad;
-  const DkvRing<D> ring{{base + L::kBarOff}, base, base + 2 * L::kKVBytes};
+  const TileRing<L> ring{{base + L::kBarOff}, base, base + 2 * L::kKVBytes};
   float* rows = reinterpret_cast<float*>(smem_raw + pad + L::kRowsOff);
   const int bi = blockIdx.x / dm.hkv, kvh = blockIdx.x % dm.hkv;
   const int k0 = blockIdx.y * L::kKeys;
@@ -1349,9 +1319,9 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (lane == 0) {
         mbar_expect_tx(ring.once(), 2 * L::kKVBytes);
         for (int h2 = 0; h2 < L::kHalves; ++h2) {
-          tma_load_4d(ring.sKV + h2 * L::kKVHalf, &tm_k, ring.once(),
+          tma_load_4d(ring.sRes + h2 * L::kKVHalf, &tm_k, ring.once(),
                       64 * h2, kvh, k0, bi);
-          tma_load_4d(ring.sKV + L::kKVBytes + h2 * L::kKVHalf, &tm_v,
+          tma_load_4d(ring.sRes + L::kKVBytes + h2 * L::kKVHalf, &tm_v,
                       ring.once(), 64 * h2, kvh, k0, bi);
         }
       }
@@ -1391,24 +1361,220 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// ------------------------------------------------------------ bf16 dQ
+//
+// See the note at the top of the file: the dK/dV pass's blocks with rows
+// and keys swapped. 128 query rows per CTA (2 consumer warpgroups x 64),
+// 64 keys per ring stage, every tile stored as D / 64 halves of (rows x
+// 128 B), 1024-byte aligned.
+template <int D>
+struct DqTile {
+  static constexpr int kRows = 128, kKeys = 64, kStages = 4;
+  static constexpr int kConsumerWarps = 8;
+  static constexpr int kThreads = 32 * kConsumerWarps + 128;   // + producer
+  static constexpr int kHalves = D / 64;
+  static constexpr int kQHalf = kHalf128, kKVHalf = kHalf64;
+  static constexpr int kQBytes = kHalves * kQHalf;     // the Q or dO tile
+  static constexpr int kKVBytes = kHalves * kKVHalf;   // a K or V tile
+  static constexpr int kStageBytes = 2 * kKVBytes;
+  static constexpr int kBarOff = 2 * kQBytes + kStages * kStageBytes;
+  // + the ring's barriers (the once barrier is Q's and dO's); + slack to
+  // align.
+  static constexpr int kSmem = kBarOff + Ring<kStages>::kBarBytes + 1024;
+};
+
+// dS = P∘(dP − delta) in place in s for one warp's 16 rows (row0 ..) and
+// the 64 keys from k0, P = 2^(S·scale·log2 e − LSE·log2 e); masked
+// entries (causal, keys >= skv, rows >= sq) are 0.
+__device__ __forceinline__ void dq_ds(float (&s)[8][4], const float (&dp)[8][4],
+                                      const float (&lse2)[2],
+                                      const float (&del)[2], int row0, int k0,
+                                      const Dims& dm) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float scale2 = dm.scale * kLog2e;
+  const bool masked = (dm.causal && k0 + 63 > row0) || k0 + 64 > dm.skv ||
+                      row0 + 16 > dm.sq;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      float p = ex2(fmaf(s[j][e], scale2, -lse2[r]));
+      if (masked) {
+        const int row = row0 + g + 8 * r, col = k0 + 8 * j + 2 * t + (e & 1);
+        if ((dm.causal && col > row) || col >= dm.skv || row >= dm.sq)
+          p = 0.f;
+      }
+      s[j][e] = p * (dp[j][e] - del[r]);
+    }
+}
+
+// One consumer warpgroup: rows q0 + 64 wg .. + 63 of the CTA, 16 per warp.
+// Tiles 0 .. n_live - 1 are computed, the rest (wholly above this
+// warpgroup's rows) only released. Software pipeline over the live tiles:
+// iteration i issues S(i+1), dP(i+1) and then dQ += dS(i)·K(i) as two wgmma
+// groups, computes dS(i+1) once the first has retired (wait_group 1) while
+// the second is in flight, and only then (wait_group 0) releases stage i
+// and writes dS(i+1) into the registers the dQ product was reading. The
+// first S/dP and the last dQ are peeled out of the loop, so that no wgmma
+// is issued under a branch: ptxas serialises every wgmma of a kernel that
+// does (its C7520 note), and that form took ~1.2x as long (PERF.md).
+template <int D>
+__device__ __forceinline__ void dq_consume(
+    const TileRing<DqTile<D>>& ring, int bi, int hi, int q0, int n_tiles,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ dq, const Dims& dm) {
+  using L = DqTile<D>;
+  constexpr int ND = D / 8;
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2;
+  const int wq0 = q0 + 64 * wg, row0 = wq0 + 16 * warp;
+  const uint32_t sQw = ring.sRes + wg * 64 * 128;
+  const uint32_t sdOw = sQw + L::kQBytes;
+  // Causal: key tiles from wq0 + 64 on lie wholly above these rows.
+  const int n_live =
+      wq0 >= dm.sq ? 0 : dm.causal ? min(n_tiles, wq0 / 64 + 1) : n_tiles;
+  float lse2[2], del[2];
+  const size_t row_off = ((size_t)bi * dm.h + hi) * dm.sq;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    const bool ok = row < dm.sq;
+    lse2[r] = ok ? lse[row_off + row] * kLog2e : 0.f;
+    del[r] = ok ? delta[row_off + row] : 0.f;
+  }
+  float acc[ND][4], s[8][4], dp[8][4];
+  uint32_t da[4][4];
+  zero(acc);
+  zero(s);    // the first k16 step of each product ignores them (scale_d
+  zero(dp);   // 0); zeroed once so that no read is of undefined values
+  if (n_live > 0) {
+    mbar_wait(ring.once(), 0);
+    ring.wait_full(0);
+    wgmma_fence();
+    issue_ss64<D>(s, sQw, ring.stage(0));
+    issue_ss64<D>(dp, sdOw, ring.stage(0) + L::kKVBytes);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    dq_ds(s, dp, lse2, del, row0, 0, dm);
+    to_p(da, s);
+    for (int i = 0; i < n_live - 1; ++i) {
+      ring.wait_full(i + 1);
+      wgmma_fence();
+      issue_ss64<D>(s, sQw, ring.stage(i + 1));
+      issue_ss64<D>(dp, sdOw, ring.stage(i + 1) + L::kKVBytes);
+      wgmma_commit();
+      issue_rs64<D>(acc, da, ring.stage(i));
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(s);
+      fence_regs(dp);
+      dq_ds(s, dp, lse2, del, row0, (i + 1) * L::kKeys, dm);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(ring.empty(i));
+      to_p(da, s);
+    }
+    wgmma_fence();
+    issue_rs64<D>(acc, da, ring.stage(n_live - 1));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(ring.empty(n_live - 1));
+  }
+  for (int i = n_live; i < n_tiles; ++i) {
+    ring.wait_full(i);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(ring.empty(i));
+  }
+  write_rows<__nv_bfloat16, ND>(
+      dq + ((size_t)bi * dm.sq * dm.h + hi) * D, (size_t)dm.h * D, row0,
+      dm.sq, acc, dm.scale, dm.scale);
+}
+
+// One CTA = 128 query rows of one (batch, head); grid (b·h, row tiles),
+// the heaviest causal row tiles first.
+template <int D>
+__global__ void __launch_bounds__(DqTile<D>::kThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dq, Dims dm) {
+  using L = DqTile<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const TileRing<L> ring{{base + L::kBarOff}, base, base + 2 * L::kQBytes};
+  const int bi = blockIdx.x / dm.h, hi = blockIdx.x % dm.h;
+  const int kvh = hi / dm.n_rep;
+  const int q0 =
+      (dm.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * L::kRows;
+  const int kv_end = dm.causal ? min(dm.skv, q0 + L::kRows) : dm.skv;
+  const int n_tiles = (kv_end + L::kKeys - 1) / L::kKeys;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(ring.full(s), 1);
+      mbar_init(ring.empty(s), L::kConsumerWarps);
+    }
+    mbar_init(ring.once(), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // One if/else for the two roles, never rejoined, so that ptxas can give
+  // each its own register count.
+  if (threadIdx.x >= 32 * L::kConsumerWarps) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 32 * L::kConsumerWarps) {
+      mbar_expect_tx(ring.once(), 2 * L::kQBytes);
+      for (int h2 = 0; h2 < L::kHalves; ++h2) {
+        tma_load_4d(ring.sRes + h2 * L::kQHalf, &tm_q, ring.once(), 64 * h2,
+                    hi, q0, bi);
+        tma_load_4d(ring.sRes + L::kQBytes + h2 * L::kQHalf, &tm_do,
+                    ring.once(), 64 * h2, hi, q0, bi);
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        const uint32_t sK = ring.stage(i);
+        ring.wait_empty(i);
+        mbar_expect_tx(ring.full(i), L::kStageBytes);
+        for (int h2 = 0; h2 < L::kHalves; ++h2) {
+          tma_load_4d(sK + h2 * L::kKVHalf, &tm_k, ring.full(i), 64 * h2,
+                      kvh, i * L::kKeys, bi);
+          tma_load_4d(sK + L::kKVBytes + h2 * L::kKVHalf, &tm_v,
+                      ring.full(i), 64 * h2, kvh, i * L::kKeys, bi);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    dq_consume<D>(ring, bi, hi, q0, n_tiles, lse, delta, dq, dm);
+  }
+}
+
 // ---------------------------------------------------------------- launchers
 
 template <typename T, int D>
 size_t fwd_smem() {
-  return sizeof(T) * ((size_t)(kTileQ + 2 * kTileK) * (D + Pad<T>::v) +
-                      (size_t)kTileQ * (kTileK + Pad<T>::v));
+  return sizeof(T) * ((size_t)(kTileQ + 2 * kTileK) * (D + kPad) +
+                      (size_t)kTileQ * (kTileK + kPad));
 }
 
 template <typename T, int D>
 size_t dq_smem() {
-  return sizeof(T) * ((size_t)(2 * kTileQ + 2 * kTileK) * (D + Pad<T>::v) +
-                      (size_t)kTileQ * (kTileK + Pad<T>::v));
+  return sizeof(T) * ((size_t)(2 * kTileQ + 2 * kTileK) * (D + kPad) +
+                      (size_t)kTileQ * (kTileK + kPad));
 }
 
 template <typename T, int D>
 size_t dkv_smem() {
-  return sizeof(T) * ((size_t)(2 * kTileK + 2 * kTileQdkv) * (D + Pad<T>::v) +
-                      (size_t)2 * kTileK * (kTileQdkv + Pad<T>::v)) +
+  return sizeof(T) * ((size_t)(2 * kTileK + 2 * kTileQdkv) * (D + kPad) +
+                      (size_t)2 * kTileK * (kTileQdkv + kPad)) +
          2 * kTileQdkv * sizeof(float);
 }
 
@@ -1525,6 +1691,28 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v,
 }
 
 template <int D>
+cudaError_t bwd_dq_wgmma(const void* q, const void* k, const void* v,
+                         const void* dout, const void* lse, const void* delta,
+                         void* dq, int b, int sq, int skv, int h, int hkv,
+                         int causal, float scale, cudaStream_t st) {
+  using L = DqTile<D>;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!tensor_map(&tq, q, D, h, sq, b, L::kRows) ||
+      !tensor_map(&tdo, dout, D, h, sq, b, L::kRows) ||
+      !tensor_map(&tk, k, D, hkv, skv, b, L::kKeys) ||
+      !tensor_map(&tv, v, D, hkv, skv, b, L::kKeys))
+    return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(flash_bwd_dq_wgmma_kernel<D>, L::kSmem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_wgmma_kernel<D><<<dim3(b * h, tiles(sq, L::kRows)),
+                                 L::kThreads, L::kSmem, st>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq),
+      dims(sq, skv, h, hkv, causal, scale));
+  return cudaGetLastError();
+}
+
+template <int D>
 cudaError_t bwd_dkv_wgmma(const void* q, const void* k, const void* v,
                           const void* dout, const void* lse,
                           const void* delta, void* dk, void* dv, int b,
@@ -1565,26 +1753,27 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// f(std::integral_constant<int, D>{}) at the head dims with a caller: 128
+// (the bench config, Llama-3-8B) and 64 (the card tests' small configs);
+// anything else is refused.
+template <typename F>
+cudaError_t by_head_dim(int d, F f) {
+  switch (d) {
+    case 64:
+      return f(std::integral_constant<int, 64>{});
+    case 128:
+      return f(std::integral_constant<int, 128>{});
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 bool valid(int b, int sq, int skv, int h, int hkv) {
   return b > 0 && sq > 0 && skv > 0 && hkv > 0 && h % hkv == 0 &&
          tiles(sq, kTileQ) <= 65535 && tiles(skv, kTileK) <= 65535;
 }
 
 }  // namespace
-
-// Head dims with a caller: 128 (the bench config, Llama-3-8B) and 64 (the
-// card tests' small configs); anything else is refused.
-#define FLASH_DISPATCH(FN, ...)                                      \
-  switch (d) {                                                       \
-    case 64:                                                         \
-      return (int)(is_bf16 ? FN<__nv_bfloat16, 64>(__VA_ARGS__)      \
-                           : FN<float, 64>(__VA_ARGS__));            \
-    case 128:                                                        \
-      return (int)(is_bf16 ? FN<__nv_bfloat16, 128>(__VA_ARGS__)     \
-                           : FN<float, 128>(__VA_ARGS__));           \
-    default:                                                         \
-      return (int)cudaErrorInvalidValue;                             \
-  }
 
 // q (b, sq, h, d), k/v (b, skv, hkv, d) -> out like q, lse (b, h, sq) fp32
 // or nullptr for none. bf16 runs flash_fwd_wgmma_kernel, fp32 the
@@ -1595,20 +1784,13 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 float scale, int is_bf16, void* stream) {
   if (!valid(b, sq, skv, h, hkv)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 64:
-      return (int)(is_bf16 ? fwd_wgmma<64>(q, k, v, out, lse, b, sq, skv, h,
-                                           hkv, causal, scale, st)
-                           : fwd<float, 64>(q, k, v, out, lse, b, sq, skv, h,
-                                            hkv, causal, scale, st));
-    case 128:
-      return (int)(is_bf16 ? fwd_wgmma<128>(q, k, v, out, lse, b, sq, skv, h,
-                                            hkv, causal, scale, st)
-                           : fwd<float, 128>(q, k, v, out, lse, b, sq, skv,
-                                             h, hkv, causal, scale, st));
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return (int)by_head_dim(d, [&](auto dc) {
+    constexpr int D = decltype(dc)::value;
+    return is_bf16 ? fwd_wgmma<D>(q, k, v, out, lse, b, sq, skv, h, hkv,
+                                  causal, scale, st)
+                   : fwd<float, D>(q, k, v, out, lse, b, sq, skv, h, hkv,
+                                   causal, scale, st);
+  });
 }
 
 // Dynamic shared memory of the forward kernel for head dim d (bf16 or
@@ -1621,7 +1803,9 @@ extern "C" int flash_fwd_smem_bytes(int d, int is_bf16) {
   return -1;
 }
 
-// + dout like q, lse and delta (b, h, sq) fp32 -> dq like q.
+// + dout like q, lse and delta (b, h, sq) fp32 -> dq like q:
+// flash_bwd_dq_wgmma_kernel (bf16) or the CUDA-core flash_bwd_dq_kernel
+// (fp32).
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const void* lse, const void* delta,
@@ -1630,8 +1814,19 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
                                    int is_bf16, void* stream) {
   if (!valid(b, sq, skv, h, hkv)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(bwd_dq, q, k, v, dout, lse, delta, dq, b, sq, skv, h, hkv,
-                 causal, scale, st)
+  return (int)by_head_dim(d, [&](auto dc) {
+    constexpr int D = decltype(dc)::value;
+    return is_bf16 ? bwd_dq_wgmma<D>(q, k, v, dout, lse, delta, dq, b, sq,
+                                     skv, h, hkv, causal, scale, st)
+                   : bwd_dq<float, D>(q, k, v, dout, lse, delta, dq, b, sq,
+                                      skv, h, hkv, causal, scale, st);
+  });
+}
+
+// Dynamic shared memory of the bf16 dQ kernel for head dim d, for reports
+// beside ptxas's register counts.
+extern "C" int flash_bwd_dq_smem_bytes(int d) {
+  return d == 64 ? DqTile<64>::kSmem : d == 128 ? DqTile<128>::kSmem : -1;
 }
 
 // Dynamic shared memory of the bf16 dK/dV kernel for head dim d, for
@@ -1651,22 +1846,11 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
                                     void* stream) {
   if (!valid(b, sq, skv, h, hkv)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 64:
-      return (int)(is_bf16 ? bwd_dkv_wgmma<64>(q, k, v, dout, lse, delta, dk,
-                                               dv, b, sq, skv, h, hkv, causal,
-                                               scale, st)
-                           : bwd_dkv<float, 64>(q, k, v, dout, lse, delta, dk,
-                                                dv, b, sq, skv, h, hkv,
-                                                causal, scale, st));
-    case 128:
-      return (int)(is_bf16 ? bwd_dkv_wgmma<128>(q, k, v, dout, lse, delta, dk,
-                                                dv, b, sq, skv, h, hkv,
-                                                causal, scale, st)
-                           : bwd_dkv<float, 128>(q, k, v, dout, lse, delta,
-                                                 dk, dv, b, sq, skv, h, hkv,
-                                                 causal, scale, st));
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return (int)by_head_dim(d, [&](auto dc) {
+    constexpr int D = decltype(dc)::value;
+    return is_bf16 ? bwd_dkv_wgmma<D>(q, k, v, dout, lse, delta, dk, dv, b,
+                                      sq, skv, h, hkv, causal, scale, st)
+                   : bwd_dkv<float, D>(q, k, v, dout, lse, delta, dk, dv, b,
+                                       sq, skv, h, hkv, causal, scale, st);
+  });
 }
