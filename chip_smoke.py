@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases device,build,kernel
     python3 chip_smoke.py --phases device,build,kernel,split
     python3 chip_smoke.py --phases device,build,kernel,train
+    python3 chip_smoke.py --phases device,build,lora,pages
     python3 chip_smoke.py --phases device --turns parent,.,.,parent
 
 Phases, in order; any failure raises and the exit code is non-zero:
@@ -49,13 +50,33 @@ Phases, in order; any failure raises and the exit code is non-zero:
                a, b, b, a; decode steps of 8 rows on both, host wall in
                turns and device time (torch.profiler); reserved memory
                over each one's warmup (the graphs' pool).
-  5. split     the same model and weights through the split path: the
+  5. lora      multi-LoRA at full width: the graphed Llama-3-8B server
+               with four rank-8 adapters over all seven targets (the
+               port's init_adapter from the seed) serves the server's mix
+               spread over the base model and the adapters, against the
+               base server on the same weights and mix in turns a, b, b,
+               a (K5 >= n_layers x ticks counted on replays,
+               step_compiles unchanged after warmup); a load_adapter
+               between ticks changes that adapter's next tokens with no
+               capture; a resize captures each token bucket once and
+               keeps every loaded adapter's columns; decode walls in
+               turns, profiles and graph memory of both, the stacks'
+               memory and read bound.
+  6. pages     the KV page plane on the 8B engine: 8 pages through
+               gather, encode, decode and scatter byte-exactly; a request
+               exported after 8 tokens and adopted by a second engine
+               decodes on; a 96-page pool whose repeated 1024-token
+               prompt is evicted by fillers, spilled and promoted from
+               the host tier (prefill computed == prompt - saved); an
+               update_weights in place (no capture) that drops both
+               tiers, then the old weights back.
+  7. split     the same model and weights through the split path: the
                server's request mix on a unified_ticks=False engine, a
                repetition-penalty request on a default engine (routed to
                the split host-logits path), multi-step and split
                speculative engines; every run launches K6 n_layers times
                per runner step and K5 never; decode-step profile.
-  6. identity  full width at 2 layers in fp32: the greedy tokens of the
+  8. identity  full width at 2 layers in fp32: the greedy tokens of the
                unified (graphed and eager), unified-speculative, split,
                multi-step and split-speculative engines equal greedy
                decoding with the naive llama.forward, the unified
@@ -64,7 +85,14 @@ Phases, in order; any failure raises and the exit code is non-zero:
                repetition-penalty request equals naive forward + host
                sampling, and a seeded temperature request gives the same
                tokens alone, inside a batch and on the split path.
-  7. train     the JAX package's bench training configuration (vocab
+               LoRA: each adapter's greedy tokens equal the naive forward
+               with merged weights W + A·B·scaling, base-slot requests
+               the base engine's, unchanged by a resize, and a refreshed
+               adapter's its merged forward's; an adopted request and a
+               host-promoted prefix give the undisturbed run's tokens;
+               after update_weights the engine equals a fresh engine on
+               the new weights.
+  9. train     the JAX package's bench training configuration (vocab
                32000, d 2048, 14 layers, 16/8 heads, d_ff 7168, bf16) at
                full width and depth: flash attention, "dots" remat, batch
                4 x 2048, AdamW(1e-4, 0.9, 0.95, mu bf16), 2 warm-up and 10
@@ -110,8 +138,8 @@ import threading
 import time
 import zlib
 
-ALL_PHASES = ("device", "build", "kernel", "server", "split", "identity",
-              "train")
+ALL_PHASES = ("device", "build", "kernel", "server", "lora", "pages",
+              "split", "identity", "train")
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12,     # dense bf16 tensor-core rate
             "float32": 67e12}       # fp32 outside the tensor cores
@@ -817,20 +845,23 @@ def _engine_config(config, **kw):
     batch 8, prefill chunk 128."""
     from ray_tpu_torch.llm.serving import LLMConfig
 
-    return LLMConfig(model_config=config, block_size=16, num_kv_blocks=512,
-                     max_batch_size=8, prefill_chunk=128, device="cuda",
-                     **kw)
+    return LLMConfig(**dict(dict(
+        model_config=config, block_size=16, num_kv_blocks=512,
+        max_batch_size=8, prefill_chunk=128, device="cuda"), **kw))
 
 
-def _mix_requests(config, tag, seed=SEED):
+def _mix_requests(config, tag, seed=SEED, loras=None):
     """Four greedy prompts of 20 to 700 tokens and one seeded temperature
-    request, 32 new tokens each."""
+    request, 32 new tokens each; `loras` names each one's adapter (None:
+    the base model)."""
     lengths = [20, 100, 300, 700]
     prompts = _prompts(lengths + [60], config.vocab_size, seed)
     requests = [dict(prompt=p, max_tokens=32, request_id=f"{tag}-{n}")
                 for p, n in zip(prompts, lengths)]
     requests.append(dict(prompt=prompts[-1], max_tokens=32, temperature=0.8,
                          top_k=50, seed=1234, request_id="smoke-seeded"))
+    for r, name in zip(requests, loras or ()):
+        r["lora_name"] = name
     return requests
 
 
@@ -1011,6 +1042,350 @@ def phase_server(torch):
     torch.cuda.empty_cache()
 
 
+LORA_MIX = (None, "a0", "a1", "a2", "a3")   # the mix's five requests
+
+
+def _adapters(torch, config, n=4, seed=SEED + 20):
+    """n rank-8 adapters over all seven targets, a0, a1, ..., from the
+    port's init_adapter on seeded generators, B drawn at scale 0.5 (the
+    default is 0.1) so that an adapter moves the greedy tokens of random
+    weights."""
+    from ray_tpu_torch.llm import lora
+
+    return [lora.init_adapter(config, f"a{i}", rank=8, targets=lora.TARGETS,
+                              scale=0.5,
+                              generator=torch.Generator().manual_seed(
+                                  seed + i))
+            for i in range(n)]
+
+
+def _alone(server, prompt, name, rid, n=16):
+    """One request alone on the server's engine under the server lock
+    (the loop thread waits), to completion; returns its tokens."""
+    from ray_tpu_torch.llm.sampling import SamplingParams
+
+    with server._lock:
+        engine = server.engine
+        engine.add_request(prompt, SamplingParams(max_tokens=n),
+                           request_id=rid, lora_name=name)
+        out = None
+        while engine.has_unfinished():
+            for o in engine.step():
+                if o.request_id == rid and o.finished:
+                    out = o.output_token_ids
+    return out
+
+
+def _stacks_bound_ms(manager):
+    """Least time to read every slot stack once (each tick's LoRA
+    products read all of them) at the HBM rate."""
+    return manager.nbytes() / HBM_BYTES_PER_S * 1e3
+
+
+def phase_lora(torch):
+    """Multi-LoRA serving at full width: the graphed Llama-3-8B server
+    with four rank-8 adapters over all seven targets, against the base
+    server on the same weights and mix, in turns; decode walls, profiles
+    and graph memory of both; a load_adapter between ticks; a resize."""
+    from ray_tpu_torch.llm import lora
+    from ray_tpu_torch.llm.serving import LLMServer, build_engine
+
+    config, params = _llama8b(torch)
+    adapters = _adapters(torch, config)
+    t0 = time.perf_counter()
+    server = LLMServer(_engine_config(config, lora_adapters=adapters),
+                       params=params)
+    mgr = server.engine.runner.lora
+    log(f"lora: server with {len(adapters)} adapters (rank 8, all 7 "
+        f"targets, {mgr.n_slots - 1} user slots) built + warmed in "
+        f"{time.perf_counter() - t0:.1f} s; stacks {mgr.nbytes() / 2**30:.3f}"
+        f" GiB, read bound {_stacks_bound_ms(mgr):.3f} ms a tick; "
+        f"step_compiles {server.engine_stats()['step_compiles']}")
+    base = LLMServer(_engine_config(config), params=params)
+    turns = []
+    for i, (label, srv) in enumerate((("base", base), ("lora", server),
+                                      ("lora", server), ("base", base))):
+        requests = _mix_requests(config, f"lora-turn{i}", SEED + 30 + i,
+                                 loras=LORA_MIX if label == "lora" else None)
+        _, numbers = _server_run(torch, srv, requests, config,
+                                 f"{label} (turn {i})")
+        turns.append(dict(numbers, path=label))
+    out = dict(turns=turns, adapters=len(adapters), rank=8,
+               stacks_gib=mgr.nbytes() / 2**30,
+               stacks_bound_ms=_stacks_bound_ms(mgr),
+               k5_launches=turns[1]["k5_launches"], ticks=turns[1]["ticks"])
+    base.close()
+    del base
+    # load_adapter between ticks: in place, no capture; the adapter's next
+    # request decodes with the new weights, and loading the old ones back
+    # gives the old tokens (alone, same composition: bf16 exact).
+    eng = server.engine
+    prompt = _prompts([90], config.vocab_size, SEED + 40)[0]
+    compiles = eng.runner.step_compiles
+    before = _alone(server, prompt, "a1", "swap-0")
+    fresh = lora.init_adapter(config, "a1", rank=8, targets=lora.TARGETS,
+                              scale=0.5,
+                              generator=torch.Generator().manual_seed(
+                                  SEED + 99))
+    with server._lock:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.load_adapter(fresh)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+    after = _alone(server, prompt, "a1", "swap-1")
+    with server._lock:
+        mgr.load_adapter(adapters[1])
+    back = _alone(server, prompt, "a1", "swap-2")
+    if after == before or eng.runner.step_compiles != compiles:
+        raise AssertionError(f"lora load_adapter: tokens {before} -> "
+                             f"{after}, step_compiles {compiles} -> "
+                             f"{eng.runner.step_compiles}")
+    same_back = sum(a == b for a, b in zip(back, before))
+    log(f"lora: load_adapter between ticks in {load_ms:.1f} ms, no capture "
+        f"(step_compiles {compiles}); a1's next tokens changed at "
+        f"{sum(a != b for a, b in zip(after, before))}/16 positions; the old"
+        f" weights loaded back give the old tokens at {same_back}/16")
+    out.update(load_adapter_ms=load_ms, load_changed_tokens=True,
+               load_back_equal=same_back)
+    # resize: the stacks are reallocated; each token bucket captures once
+    # on its next tick (recorded as a recompile), the loaded adapters'
+    # columns are kept, and later ticks replay.
+    short = _prompts([15], config.vocab_size, SEED + 41)[0]
+    names = [None] + mgr.loaded
+    stacks = {t: [x.clone() for x in mgr.slot_stacks(t)]
+              for t in mgr.targets}
+    outs = [_alone(server, short, n, f"pre-{i}") for i, n in
+            enumerate(names)]
+    compiles = eng.runner.step_compiles
+    last = eng.flight_records[-1]
+    with server._lock:
+        new_slots = mgr.resize(12)
+    post = [_alone(server, short, n, f"post-{i}") for i, n in
+            enumerate(names)]
+    records = list(eng.flight_records)
+    records = records[next(i for i in range(len(records) - 1, -1, -1)
+                           if records[i] is last) + 1:]
+    recaptured = [r["bucket"] for r in records if r.get("recompile")]
+    grown = eng.runner.step_compiles - compiles
+    for i, n in enumerate(names):     # the same buckets again: no capture
+        _alone(server, short, n, f"again-{i}")
+    kept = all(torch.equal(x, y[:, :x.shape[1]]) for t in mgr.targets
+               for x, y in zip(stacks[t], mgr.slot_stacks(t)))
+    if (len(recaptured) != len(set(recaptured)) or not recaptured
+            or eng.runner.step_compiles - compiles != grown or not kept):
+        raise AssertionError(f"lora resize: recaptured buckets "
+                             f"{recaptured}, step_compiles +{grown} then "
+                             f"{eng.runner.step_compiles - compiles}, "
+                             f"columns kept {kept}")
+    same = sum(a == b for x, y in zip(outs, post) for a, b in zip(x, y))
+    log(f"lora: resize to {new_slots} user slots: each of buckets "
+        f"{sorted(recaptured)} captured once ({grown} graphs), none after; "
+        f"every loaded column kept; tokens after == before at "
+        f"{same}/{16 * len(names)} (bf16; fp32 in the identity phase)")
+    out.update(resize_slots=new_slots, resize_recaptured_buckets=recaptured,
+               resize_graphs=grown, resize_columns_kept=kept,
+               resize_tokens_equal=same, resize_tokens=16 * len(names))
+    RESULTS["lora"] = out
+    server.close()
+    del server, eng
+    gc.collect()
+    # Decode steps of 8 rows (the LoRA engine's rows over base + a0..a3),
+    # host wall in turns and device time; each one's graph memory.
+    lora_eng = build_engine(_engine_config(config, warmup_buckets="off",
+                                           lora_adapters=adapters),
+                            params=params)
+    base_eng = build_engine(_engine_config(config, warmup_buckets="off"),
+                            params=params)
+    out["graph_memory"] = {"base": _warm_memory(torch, base_eng, "base"),
+                           "lora": _warm_memory(torch, lora_eng, "lora")}
+    out["decode_walls_ms"] = _decode_walls(
+        torch, {"base": base_eng, "lora": lora_eng}, config)
+    out["decode_profile_base"] = _profile_decode(torch, base_eng, config,
+                                                 "rua_", "K5 base")
+    out["decode_profile_lora"] = _profile_decode(torch, lora_eng, config,
+                                                 "rua_", "K5 lora")
+    del lora_eng, base_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_pages(torch):
+    """The KV page plane on the Llama-3-8B graphed engine (bf16): pages
+    through the codec and back, a request moved between two engines, the
+    host prefix tier under a small pool, a weight swap in place."""
+    import numpy as np
+
+    from ray_tpu_torch.llm import prefix_store
+    from ray_tpu_torch.llm.sampling import SamplingParams
+    from ray_tpu_torch.llm.serving import build_engine
+
+    config, params = _llama8b(torch)
+    out = {}
+
+    def run(engine, prompt, n, rid):
+        engine.add_request(prompt, SamplingParams(max_tokens=n),
+                           request_id=rid)
+        got = None
+        while engine.has_unfinished():
+            for o in engine.step():
+                if o.request_id == rid and o.finished:
+                    got = o.output_token_ids
+        return got
+
+    a = build_engine(_engine_config(config, warmup_buckets="light"),
+                     params=params)
+    b = build_engine(_engine_config(config, warmup_buckets="light"),
+                     params=params)
+    # gather -> encode -> decode -> scatter, byte-exact.
+    run(a, _prompts([300], config.vocab_size, SEED + 50)[0], 4, "codec")
+    ids = list(a.block_manager.reusable)[:8]
+    dst = list(a.block_manager.free)[:8]
+    (k, v), gather_ms = _timed(torch, lambda: a.runner.gather_pages(ids))
+    buf, encode_ms = _timed(torch, lambda: prefix_store.encode_pages(
+        {"tokens": [], "lora_name": ""}, k, v,
+        kv_dtype=a.runner.kv_dtype_name))
+    (meta, k2, v2), decode_ms = _timed(torch, lambda:
+                                       prefix_store.decode_pages(buf))
+    _, scatter_ms = _timed(torch, lambda: a.runner.scatter_pages(dst, k2,
+                                                                 v2))
+    k3, v3 = a.runner.gather_pages(dst)
+    exact = all(torch.equal(a.runner.cache[n][:, :, dst],
+                            a.runner.cache[n][:, :, ids]) for n in "kv")
+    if not (exact and k3.tobytes() == k.tobytes()
+            and v3.tobytes() == v.tobytes()):
+        raise AssertionError("pages: gather/encode/decode/scatter differ")
+    mb = (k.nbytes + v.nbytes) / 2**20
+    log(f"pages: 8 pages ({mb:.1f} MiB, bf16 as uint16 bits) gather "
+        f"{gather_ms:.2f} ms, encode {encode_ms:.2f} ms, decode "
+        f"{decode_ms:.2f} ms, scatter {scatter_ms:.2f} ms; byte-exact")
+    out.update(codec_pages=8, codec_mib=mb, gather_ms=gather_ms,
+               encode_ms=encode_ms, decode_ms=decode_ms,
+               scatter_ms=scatter_ms, codec_exact=True)
+    # export_request on a, adopt_request on b: the adopted request
+    # continues; b's undisturbed run of the same request is the yardstick
+    # (alone both times: the same compositions).
+    moved = _prompts([200], config.vocab_size, SEED + 51)[0]
+    ref = run(b, moved, 32, "ref")
+    a.add_request(moved, SamplingParams(max_tokens=32), request_id="m")
+    while not (a.running and len(a.running[0].output) >= 8):
+        a.step()
+    state = a.export_request("m")
+    (k, v), gather_ms = _timed(torch, lambda:
+                               a.runner.gather_pages(state["blocks"]))
+    a.block_manager.release_blocks(state["blocks"])
+    ok, adopt_ms = _timed(torch, lambda: b.adopt_request(state, k, v))
+    got = None
+    while b.has_unfinished():
+        for o in b.step():
+            if o.request_id == "m" and o.finished:
+                got = o.output_token_ids
+    if not ok or len(got) != 32 or got[:8] != state["output"] or \
+            not all(0 <= t < config.vocab_size for t in got):
+        raise AssertionError(f"pages: adopted request {got}")
+    same = sum(x == y for x, y in zip(got, ref))
+    log(f"pages: export after 8 tokens, {len(state['blocks'])} pages "
+        f"gathered in {gather_ms:.2f} ms, adopted in {adopt_ms:.2f} ms; the "
+        f"adopted request decoded to 32 tokens, equal to the undisturbed "
+        f"run at {same}/32 (bf16; fp32 in the identity phase)")
+    out.update(export_pages=len(state["blocks"]), export_gather_ms=gather_ms,
+               adopt_ms=adopt_ms, adopted_equal=same)
+    del a
+    gc.collect()
+    # Host tier: a 96-page pool; a 1024-token system prompt's parked
+    # blocks are evicted by two 700-token fillers (spilled to host RAM);
+    # the repeated system prompt is promoted from the tier.
+    h = build_engine(_engine_config(config, warmup_buckets="light",
+                                    num_kv_blocks=96), params=params)
+    h.attach_prefix_store(host_tier=prefix_store.HostPrefixTier(512 << 20))
+    spill_ms = []
+    spill = h.block_manager.spill_fn
+
+    def timed_spill(bid, digest):
+        t0 = time.perf_counter()
+        spill(bid, digest)
+        spill_ms.append((time.perf_counter() - t0) * 1e3)
+
+    h.block_manager.spill_fn = timed_spill
+    system = _prompts([1024], config.vocab_size, SEED + 52)[0]
+    first, ttft0 = _timed(torch, lambda: run(h, system, 1, "sys-0"))
+    for i, f in enumerate(_prompts([700, 700], config.vocab_size,
+                                   SEED + 53)):
+        run(h, f, 4, f"fill-{i}")
+    s0 = h.stats()
+    second, ttft1 = _timed(torch, lambda: run(h, system, 1, "sys-1"))
+    s1 = h.stats()
+    hits = s1["host_prefix_hits"] - s0["host_prefix_hits"]
+    saved = (s1["host_prefix_tokens_saved"] - s0["host_prefix_tokens_saved"]
+             + s1["prefix_tokens_saved"] - s0["prefix_tokens_saved"])
+    computed = s1["prefill_tokens_computed"] - s0["prefill_tokens_computed"]
+    if hits <= 0 or computed != len(system) - saved or not spill_ms:
+        raise AssertionError(f"pages host tier: hits {hits}, computed "
+                             f"{computed}, saved {saved}, spills "
+                             f"{len(spill_ms)}")
+    block_mib = s1["host_prefix_bytes"] / max(s1["host_prefix_entries"],
+                                              1) / 2**20
+    log(f"pages: host tier: {len(spill_ms)} spills "
+        f"(median {float(np.median(spill_ms)):.2f} ms a {block_mib:.1f} MiB "
+        f"block), the "
+        f"repeated 1024-token prompt promoted {hits} blocks from host RAM "
+        f"({saved} tokens saved in all), prefill computed {computed} "
+        f"tokens; first token {ttft0:.1f} ms cold, {ttft1:.1f} ms promoted;"
+        f" same first token: {first == second}")
+    out.update(spills=len(spill_ms),
+               spill_ms_median=float(np.median(spill_ms)),
+               host_hits=hits, tokens_saved=saved, prefill_computed=computed,
+               ttft_cold_ms=ttft0, ttft_promoted_ms=ttft1)
+    # update_weights: a full new copy of the weights (wo halved) written in
+    # place (no capture), both tiers dropped; then the old weights back.
+    # The runner's tensors are the shared weights themselves.
+    prompt = _prompts([40], config.vocab_size, SEED + 54)[0]
+    before = run(h, prompt, 16, "w-0")
+    compiles = h.runner.step_compiles
+    ptr = h.runner.params["layers"]["wo"].data_ptr()
+    payload = {k: (t.clone() if k != "layers" else
+                   {n: w.clone() for n, w in t.items()})
+               for k, t in params.items()}
+    orig_wo = payload["layers"]["wo"].clone()
+    payload["layers"]["wo"] *= 0.5
+    entries = h.stats()["host_prefix_entries"]
+    res, swap_ms = _timed(torch, lambda: h.update_weights(payload))
+    after = run(h, prompt, 16, "w-1")
+    stats = h.stats()
+    payload["layers"]["wo"].copy_(orig_wo)
+    h.update_weights(payload)
+    back = run(h, prompt, 16, "w-2")
+    del orig_wo, payload
+    if (h.runner.step_compiles != compiles or after == before
+            or h.runner.params["layers"]["wo"].data_ptr() != ptr
+            or stats["host_prefix_entries"] != 0 or entries == 0
+            or res["invalidated_prefix_entries"] <= entries
+            or stats["weights_version"] != 1):
+        raise AssertionError(f"pages update_weights: {res}, {stats}")
+    log(f"pages: update_weights in {swap_ms:.1f} ms (every weight copied "
+        f"in place, no capture), dropped "
+        f"{res['invalidated_prefix_entries']} prefix entries ({entries} "
+        f"host); tokens changed; the old weights back "
+        f"give the old tokens at {sum(x == y for x, y in zip(back, before))}"
+        f"/16")
+    out.update(update_weights_ms=swap_ms,
+               invalidated=res["invalidated_prefix_entries"],
+               host_entries_dropped=entries,
+               weights_back_equal=sum(x == y for x, y in zip(back, before)))
+    RESULTS["pages"] = out
+    del h, b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _count_runner_steps(runner) -> dict:
     """Count the runner's rectangular steps from now on (a k-step
     multi-step call counts k): the unit of K6's n_layers launches."""
@@ -1061,18 +1436,28 @@ def _split_run(torch, server, requests, config, label):
                 spec_proposed=spec[1])
 
 
+def _row_adapter(engine, i):
+    """The adapter of decode row i: with a LoRA manager, rows cycle over
+    the base model and every loaded adapter."""
+    lm = engine.runner.lora
+    names = [None] + (lm.loaded if lm is not None else [])
+    return names[i % len(names)]
+
+
 def _decode_walls(torch, engines, config, n_ticks=12):
     """Host wall per engine step of each engine in steady decode (8
-    running rows at 64-token prompts), timed in turns a, b, b, a, a, b,
-    b, a on one card in one process, so that the engines compare within
-    the host clock's noise."""
+    running rows at 64-token prompts; a LoRA engine's rows spread over
+    its adapters), timed in turns a, b, b, a, a, b, b, a on one card in
+    one process, so that the engines compare within the host clock's
+    noise."""
     from ray_tpu_torch.llm.sampling import SamplingParams
 
     prompts = _prompts([64] * 8, config.vocab_size, SEED + 5)
     for engine in engines.values():
         for i, p in enumerate(prompts):
             engine.add_request(p, SamplingParams(max_tokens=6 * n_ticks + 8),
-                               request_id=f"walls-{i}")
+                               request_id=f"walls-{i}",
+                               lora_name=_row_adapter(engine, i))
         while engine.waiting or engine.prefilling:
             engine.step()
     names = list(engines)
@@ -1155,7 +1540,8 @@ def _profile_decode(torch, engine, config, kernel, label, n_ticks=12):
 
     for i, p in enumerate(_prompts([64] * 8, config.vocab_size, SEED + 2)):
         engine.add_request(p, SamplingParams(max_tokens=2 * n_ticks + 4),
-                           request_id=f"profile-{i}")
+                           request_id=f"profile-{i}",
+                           lora_name=_row_adapter(engine, i))
     while engine.waiting or engine.prefilling:
         engine.step()
     torch.cuda.synchronize()
@@ -1232,11 +1618,12 @@ def phase_identity(torch):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     params = llama.init_params(config, gen, "cuda")
 
-    def engine_for(cuda_graphs=None, **kw):
-        return build_engine(LLMConfig(
+    def engine_for(cuda_graphs=None, weights=None, **kw):
+        return build_engine(LLMConfig(**dict(dict(
             model_config=config, block_size=16, num_kv_blocks=256,
-            max_batch_size=8, prefill_chunk=128, device="cuda", **kw),
-            params=params, cuda_graphs=cuda_graphs)
+            max_batch_size=8, prefill_chunk=128, device="cuda"), **kw)),
+            params=params if weights is None else weights,
+            cuda_graphs=cuda_graphs)
 
     prompts = _prompts([37, 150, 260], config.vocab_size, SEED + 1)
     n_new = 8
@@ -1324,9 +1711,127 @@ def phase_identity(torch):
                                repetition_penalty_equal=True,
                                seeded_alone_equals_batched=True,
                                seeded_split_equals_unified=True)
-    del params, engine
+    del engine
+    RESULTS["identity"].update(_identity_lora_pages(
+        torch, llama, config, params, engine_for, prompts, greedy, n_new))
+    del params
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def _identity_lora_pages(torch, llama, config, params, engine_for, prompts,
+                         greedy, n_new):
+    """The identity phase's LoRA and page-plane checks (fp32, where every
+    path's tokens are exact): adapters against merged weights, base slots
+    against the base engine, resize and refresh, an adopted request, a
+    host-promoted prefix, tokens after update_weights."""
+    from ray_tpu_torch.llm import lora, prefix_store
+    from ray_tpu_torch.llm.sampling import SamplingParams
+
+    argmax = lambda lg, _: torch.argmax(lg)  # noqa: E731
+
+    def merged(adapter):
+        out = dict(params, layers=dict(params["layers"]))
+        for t, (a, b) in adapter.weights.items():
+            delta = torch.from_numpy(a @ b * adapter.scaling).to("cuda")
+            out["layers"][t] = out["layers"][t] + delta
+        return out
+
+    def generate(engine, reqs):
+        for i, (p, name) in enumerate(reqs):
+            engine.add_request(p, SamplingParams(max_tokens=n_new),
+                               request_id=f"i{i}", lora_name=name)
+        done = {}
+        while engine.has_unfinished():
+            done.update({o.request_id: o.output_token_ids
+                         for o in engine.step() if o.finished})
+        return [done[f"i{i}"] for i in range(len(reqs))]
+
+    adapters = _adapters(torch, config)
+    names = [None] + [a.name for a in adapters]
+    reqs = [(p, n) for p in prompts[:2] for n in names]
+    engine = engine_for(lora_adapters=adapters, max_loras=4)
+    got = generate(engine, reqs)
+    want = {}
+    for a in adapters:
+        m = merged(a)
+        want[a.name] = [_naive(torch, llama, m, config, p, n_new, argmax)
+                        for p in prompts[:2]]
+        del m
+    for (p, name), toks in zip(reqs, got):
+        ref = greedy[prompts.index(p)] if name is None else \
+            want[name][prompts.index(p)]
+        if toks != ref:
+            raise AssertionError(f"identity lora {name}: {toks} != {ref}")
+    log(f"identity: LoRA engine, {len(adapters)} rank-8 adapters over all "
+        f"targets: each adapter's greedy == naive forward with merged "
+        f"W + A·B·scaling, base-slot requests == the base engine "
+        f"({len(reqs)} requests in one batch)")
+    compiles = engine.runner.step_compiles
+    engine.runner.lora.resize(6)
+    if generate(engine, reqs) != got or engine.runner.step_compiles == \
+            compiles:
+        raise AssertionError("identity lora: tokens changed by resize")
+    fresh = lora.init_adapter(config, "a1", rank=8, targets=lora.TARGETS,
+                              scale=0.5,
+                              generator=torch.Generator().manual_seed(7))
+    engine.runner.lora.load_adapter(fresh)
+    m = merged(fresh)
+    ref = [_naive(torch, llama, m, config, p, n_new, argmax)
+           for p in prompts[:2]]
+    del m
+    if generate(engine, [(p, "a1") for p in prompts[:2]]) != ref:
+        raise AssertionError("identity lora: refreshed adapter differs")
+    log("identity: after resize(6) every request's tokens are unchanged; "
+        "a refreshed adapter == naive forward with its merged weights")
+    del engine
+    # An adopted request continues with the undisturbed run's tokens.
+    src, dst = engine_for(), engine_for()
+    src.add_request(prompts[1], SamplingParams(max_tokens=n_new),
+                    request_id="m")
+    while not (src.running and len(src.running[0].output) >= 3):
+        src.step()
+    state = src.export_request("m")
+    k, v = src.runner.gather_pages(state["blocks"])
+    src.block_manager.release_blocks(state["blocks"])
+    dst.adopt_request(state, k, v)
+    got = None
+    while dst.has_unfinished():
+        got = next((o.output_token_ids for o in dst.step() if o.finished),
+                   got)
+    if got != greedy[1]:
+        raise AssertionError(f"identity adopted: {got} != {greedy[1]}")
+    del src, dst
+    # A host-promoted prefix: a 16-page pool, a 150-token prompt's blocks
+    # evicted by a filler and promoted back.
+    eng = engine_for(num_kv_blocks=24)
+    eng.attach_prefix_store(host_tier=prefix_store.HostPrefixTier(1 << 30))
+    generate(eng, [(prompts[1], None)])
+    generate(eng, [(_prompts([300], config.vocab_size, SEED + 6)[0], None)])
+    got = generate(eng, [(prompts[1], None)])[0]
+    hits = eng.stats()["host_prefix_hits"]
+    if got != greedy[1] or hits == 0:
+        raise AssertionError(f"identity host tier: {got} vs {greedy[1]}, "
+                             f"{hits} promoted blocks")
+    log(f"identity: an adopted request's continuation and a prefix "
+        f"promoted from the host tier ({hits} blocks) == the undisturbed "
+        f"run's tokens")
+    # update_weights: the swapped engine == a fresh engine on new weights.
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    new = llama.init_params(config, gen, "cuda")
+    compiles = eng.runner.step_compiles
+    eng.update_weights(new)
+    got = generate(eng, [(p, None) for p in prompts])
+    ref = generate(engine_for(weights=new), [(p, None) for p in prompts])
+    if got != ref or got == greedy or eng.runner.step_compiles != compiles:
+        raise AssertionError(f"identity update_weights: {got} vs {ref}")
+    log("identity: after update_weights (in place, no capture) the engine "
+        "== a fresh engine built on the new weights")
+    del eng, new
+    return dict(lora_equals_merged=True, lora_base_slot_equal=True,
+                lora_resize_equal=True, lora_refresh_equal=True,
+                adopted_equal=True, host_promoted_equal=True,
+                update_weights_equal=True)
 
 
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")

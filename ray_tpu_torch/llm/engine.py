@@ -23,9 +23,20 @@ Port of ray_tpu/llm/engine.py:
   * The tick flight recorder: a bounded ring of per-tick records (batch
     composition, token budget used, bucket, recompile flag, tokens emitted
     per request), read through `tick_records`.
+  * Multi-LoRA (llm/lora.py): a request names an adapter, pins its slot
+    until it finishes, and every step carries each sequence's slot. The
+    prefix digest chain is seeded with the slot, so cached KV is never
+    shared across adapters.
+  * The KV page plane: `export_request` / `export_session` /
+    `adopt_request` move a live request with its pages between engines;
+    `update_weights` swaps the weights in place and drops every cached
+    prefix; `attach_prefix_store` wires the host prefix tier
+    (llm/prefix_store.py), which catches evicted prefix blocks and
+    promotes them back at admission; `export_prefixes` / `adopt_prefix`
+    move idle prefix blocks.
 
-Prefill-only tiers, LoRA, the prefix-store tiers, weight updates and
-export/adopt/migration are later slices: the engine refuses them with a
+Prefill-only (disaggregated) engines and the cluster prefix tier need an
+actor runtime the port does not have yet: the engine refuses them with a
 ValueError instead of computing something else.
 """
 
@@ -38,13 +49,14 @@ import time
 import uuid
 import zlib
 from collections import OrderedDict, deque
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ray_tpu_torch.llm.model_runner import HostCopy, _bucket, token_buckets
 from ray_tpu_torch.llm.sampling import SamplingParams, sample
+from ray_tpu_torch.models.llama import to_torch
 
 # Per-process key for the prefix-cache digest chain: unpredictable to
 # clients, so cache addresses can't be forged across tenants.
@@ -57,6 +69,12 @@ PIPELINE_DEPTH = 4
 def _unported(feature: str) -> ValueError:
     return ValueError(f"{feature} is not ported to ray_tpu_torch yet "
                       "(ROADMAP.md lists it as a later slice)")
+
+
+class WeightSyncError(RuntimeError):
+    """A weight hot-swap payload failed validation against the loaded model
+    (structure, leaf shape or dtype), or the engine was mid-generation.
+    Raised by `LLMEngine.update_weights` before any state is touched."""
 
 
 def prefix_digest_chain(prompt: Sequence[int], block_size: int, *,
@@ -81,6 +99,26 @@ def prefix_digest_chain(prompt: Sequence[int], block_size: int, *,
     return out
 
 
+def _leaf_pairs(old, new, path: str = "") -> List[tuple]:
+    """(name, engine tensor, payload leaf as a tensor) over two parameter
+    dicts of one structure; WeightSyncError where the structures
+    differ."""
+    if isinstance(old, dict):
+        if not isinstance(new, dict) or set(new) != set(old):
+            got = sorted(new) if isinstance(new, dict) else type(new).__name__
+            raise WeightSyncError(
+                f"pytree structure mismatch at {path or 'the root'}: engine "
+                f"has {sorted(old)}, payload has {got}")
+        return [pair for k in sorted(old)
+                for pair in _leaf_pairs(old[k], new[k], f"{path}['{k}']")]
+    if isinstance(new, np.ndarray):
+        new = to_torch(new)
+    if not isinstance(new, torch.Tensor):
+        raise WeightSyncError(f"pytree structure mismatch at {path}: "
+                              f"payload leaf is {type(new).__name__}")
+    return [(path, old, new)]
+
+
 @dataclasses.dataclass
 class RequestOutput:
     request_id: str
@@ -94,10 +132,11 @@ class RequestOutput:
 
 class _Request:
     def __init__(self, request_id: str, prompt: List[int],
-                 params: SamplingParams):
+                 params: SamplingParams, lora_slot: int = 0):
         self.id = request_id
         self.prompt = list(prompt)
         self.params = params
+        self.lora_slot = lora_slot    # 0 = base model (llm/lora.py)
         self.output: List[int] = []
         self.blocks: List[int] = []
         self.prefilled = 0          # context tokens already run through
@@ -107,11 +146,15 @@ class _Request:
         self.seed_val = (params.seed if params.seed is not None
                          else zlib.crc32(request_id.encode()) & 0x7FFFFFFF)
         self.finished_reason: Optional[str] = None
+        self.lora_pinned = lora_slot != 0   # released once on finish
         self.prefix_hashes: Optional[List[bytes]] = None  # lazy, per prompt
         self.registered_blocks = 0  # prompt blocks made cache-addressable
+        # Lifecycle timestamps; they travel inside an exported request's
+        # state, handoff_s/pause_s accumulate the time spent off-engine.
         self.timing: Dict[str, Optional[float]] = {
             "t_submit": time.time(), "t_admit": None,
-            "t_first_token": None, "t_last_token": None}
+            "t_first_token": None, "t_last_token": None,
+            "handoff_s": 0.0, "pause_s": 0.0}
 
     @property
     def num_tokens(self) -> int:
@@ -147,6 +190,24 @@ class BlockManager:
         self.reusable: "OrderedDict[int, None]" = OrderedDict()  # LRU
         self.prefix_hits = 0
         self.prefix_tokens_saved = 0
+        # digest -> (lora_slot, lora_name, root-anchored token prefix
+        # through that block): what the host prefix tier needs to
+        # re-address and token-verify a block after it leaves the device.
+        # The adapter NAME is resolved at registration, while the owning
+        # request still pins its slot (slots are recycled across loads).
+        self.digest_meta: Dict[bytes, Tuple[int, Optional[str],
+                                            Tuple[int, ...]]] = {}
+        # Hooks installed by LLMEngine.attach_prefix_store: spill_fn(bid,
+        # digest) runs just before a parked cached block is recycled (the
+        # last moment its pages are intact); lora_name_fn maps a pinned
+        # slot to its adapter name ("" = base model).
+        self.spill_fn = None
+        self.lora_name_fn = None
+
+    def _slot_name(self, lora_slot: int) -> Optional[str]:
+        if self.lora_name_fn is not None:
+            return self.lora_name_fn(lora_slot)
+        return "" if lora_slot == 0 else None
 
     def blocks_needed(self, num_tokens: int) -> int:
         return (num_tokens + self.block_size - 1) // self.block_size
@@ -160,9 +221,14 @@ class BlockManager:
     def _take_free_block(self) -> int:
         if self.free:
             return self.free.popleft()
-        # Recycle the least-recently-used parked cached block.
+        # Recycle the least-recently-used parked cached block, spilling it
+        # to the host prefix tier first while its pages are still intact.
         bid, _ = self.reusable.popitem(last=False)
-        self.cached.pop(self.block_hash.pop(bid), None)
+        h = self.block_hash.pop(bid)
+        if self.spill_fn is not None:
+            self.spill_fn(bid, h)
+        self.cached.pop(h, None)
+        self.digest_meta.pop(h, None)
         return bid
 
     def allocate(self, req: _Request, num_tokens: int) -> bool:
@@ -193,11 +259,14 @@ class BlockManager:
             else:
                 self.free.append(bid)
 
-    def prefix_hashes(self, prompt: Sequence[int]) -> List[bytes]:
-        """Digest chain for this manager's cache addresses; the chain seed
-        is the base-model slot (0) as in the JAX engine."""
-        return prefix_digest_chain(prompt, self.block_size,
-                                   seed=(0).to_bytes(8, "little"))
+    def prefix_hashes(self, prompt: Sequence[int],
+                      lora_slot: int = 0) -> List[bytes]:
+        """Digest chain for this manager's cache addresses, seeded with the
+        LoRA slot as 8 signed little-endian bytes: adapters change wk/wv,
+        so KV differs per adapter and sharing it across them would be
+        silently wrong."""
+        slot = int(lora_slot).to_bytes(8, "little", signed=True)
+        return prefix_digest_chain(prompt, self.block_size, seed=slot)
 
     def match_prefix(self, req: _Request, hashes: List[bytes]) -> int:
         """Attach the longest cached chain to req; returns tokens skipped.
@@ -231,6 +300,63 @@ class BlockManager:
             return
         self.cached[h] = bid
         self.block_hash[bid] = h
+        self.digest_meta[h] = (
+            req.lora_slot, self._slot_name(req.lora_slot),
+            tuple(req.prompt[:(index + 1) * self.block_size]))
+
+    def register_adopted_block(self, bid: int, h: bytes, lora_slot: int,
+                               tokens: Sequence[int]) -> bool:
+        """Make a block adopted from the prefix store addressable under
+        digest `h` (the adopter already holds a refcount on `bid`). First
+        writer wins, like register_block."""
+        if not self.caching or h in self.cached or bid in self.block_hash:
+            return False
+        self.cached[h] = bid
+        self.block_hash[bid] = h
+        self.digest_meta[h] = (int(lora_slot), self._slot_name(lora_slot),
+                               tuple(tokens))
+        return True
+
+    def invalidate_prefix_cache(self) -> int:
+        """Drop every cached prefix mapping (after a weight swap cached KV
+        is stale). Parked blocks return to the free pool; blocks of live
+        sequences lose their address and free normally on release.
+        Returns the number of entries dropped."""
+        n = len(self.cached)
+        self.cached.clear()
+        self.block_hash.clear()
+        self.digest_meta.clear()
+        while self.reusable:
+            bid, _ = self.reusable.popitem(last=False)
+            self.free.append(bid)
+        return n
+
+    def invalidate_slot(self, lora_slot: int) -> int:
+        """Drop the cached prefixes registered under one LoRA slot (its
+        adapter's weights changed). Returns the number dropped."""
+        stale = [h for h, meta in self.digest_meta.items()
+                 if meta[0] == lora_slot]
+        for h in stale:
+            bid = self.cached.pop(h)
+            del self.block_hash[bid]
+            del self.digest_meta[h]
+            if bid in self.reusable:
+                del self.reusable[bid]
+                self.free.append(bid)
+        return len(stale)
+
+    def adopt_blocks(self, n: int) -> Optional[List[int]]:
+        """Allocate `n` fresh private pages for KV adopted from elsewhere,
+        refcounted like any allocation; None (nothing taken) when the pool
+        cannot fit them."""
+        if self.available() < n:
+            return None
+        out: List[int] = []
+        for _ in range(n):
+            bid = self._take_free_block()
+            self.refcount[bid] = self.refcount.get(bid, 0) + 1
+            out.append(bid)
+        return out
 
 
 class LLMEngine:
@@ -286,9 +412,17 @@ class LLMEngine:
         # length headroom, else the single-step program.
         self.multi_step = max(1, int(decode_multi_step))
         self.unified_ticks = bool(unified_ticks)
-        # Prefill tokens actually run through the model (cache hits
-        # excluded).
+        # Bumped by update_weights.
+        self.weights_version = 0
+        # Prefill tokens actually run through the model (cache hits and
+        # adopted KV excluded).
         self.prefill_tokens_computed = 0
+        # Host prefix tier (llm/prefix_store.py), attached by the serving
+        # layer through attach_prefix_store: it catches device evictions
+        # and _admit promotes from it.
+        self.host_prefix_tier = None
+        self.host_prefix_hits = 0
+        self.host_prefix_tokens_saved = 0
         self.preemptions = 0
         self.ticks = 0               # unified mixed steps dispatched
         # Rows per sequence of a unified tick: its last token, then the
@@ -303,6 +437,7 @@ class LLMEngine:
         budget = max(budget, self.max_batch * self._spec_width, 8)
         self.token_budget = -(-budget // 8) * 8
         self._warm_mixed: set = set()   # token buckets already warmed
+        self._warm_epoch = 0   # the LoRA stacks' epoch _warm_mixed holds
         # Tick flight recorder: a bounded ring of per-tick records, so a
         # slow token is attributable to a cause (a long prefill taking the
         # budget, a capture in the hot loop) and not just visible as a
@@ -310,6 +445,8 @@ class LLMEngine:
         self.flight_records: deque = deque(
             maxlen=int(os.environ.get("RAY_TPU_LLM_FLIGHT_RECORDS", "256")))
         self._tick_note: Dict = {}
+        if model_runner.lora is not None:
+            model_runner.lora.listeners.append(self._adapter_loaded)
 
     # ---- API -------------------------------------------------------------
 
@@ -317,12 +454,41 @@ class LLMEngine:
                     params: Optional[SamplingParams] = None,
                     request_id: Optional[str] = None,
                     lora_name: Optional[str] = None) -> str:
-        if lora_name:
-            raise _unported("LoRA (lora_name)")
         rid = request_id or uuid.uuid4().hex[:12]
+        slot = 0
+        if lora_name:
+            if self.runner.lora is None:
+                raise ValueError(
+                    "engine has no LoRA manager; lora_name unsupported")
+            slot = self.runner.lora.slot_of(lora_name)  # KeyError if absent
+            # Pin until the request finishes: LRU eviction must not hand
+            # this slot to another adapter mid-generation.
+            self.runner.lora.pin(slot)
         self.waiting.append(_Request(rid, list(prompt_token_ids),
-                                     params or SamplingParams()))
+                                     params or SamplingParams(), slot))
         return rid
+
+    def _adapter_loaded(self, slot: int) -> None:
+        """A slot took new adapter weights (a refresh, or another adapter
+        after an eviction): KV cached or spilled under that slot was
+        computed with the old ones. The JAX engine keeps serving it; here
+        it is dropped from both tiers."""
+        self.block_manager.invalidate_slot(slot)
+        if self.host_prefix_tier is not None:
+            self.host_prefix_tier.drop(lambda e: e["lora_slot"] == slot)
+
+    def _unpin_lora(self, req: _Request):
+        if req.lora_pinned:
+            req.lora_pinned = False
+            self.runner.lora.unpin(req.lora_slot)
+
+    def _lora_idx(self, batch, S) -> Optional[np.ndarray]:
+        if self.runner.lora is None:
+            return None
+        idx = np.zeros(S, dtype=np.int32)
+        for i, req in enumerate(batch):
+            idx[i] = req.lora_slot
+        return idx
 
     def has_unfinished(self) -> bool:
         return bool(self.waiting or self.prefilling or self.running
@@ -416,6 +582,7 @@ class LLMEngine:
                 if req.id == request_id:
                     queue_.remove(req)
                     req.finished_reason = "abort"
+                    self._unpin_lora(req)
                     self._defer_release(req)
                     return True
         return False
@@ -430,17 +597,335 @@ class LLMEngine:
         for queue_ in (self.waiting, self.prefilling, self.running):
             for req in queue_:
                 req.dispatched = 0
+                self._unpin_lora(req)
                 self.block_manager.release(req)
             queue_.clear()
 
-    def update_weights(self, *args, **kwargs):
-        raise _unported("weight updates (update_weights)")
+    def update_weights(self, params: Dict, *, version: Optional[int] = None,
+                       force: bool = False) -> Dict:
+        """Hot-swap the model weights in place (RLHF weight sync).
 
-    def export_session(self, *args, **kwargs):
-        raise _unported("session export / migration")
+        Validates `params` (the port's parameter dict; tensors or numpy
+        arrays) against the loaded model first, structure, per-leaf shape
+        and dtype, and raises `WeightSyncError` on any mismatch before
+        touching anything. Then copies every leaf into the runner's
+        existing tensor (`copy_`): a captured graph holds those tensors,
+        so it replays the new weights with no recapture. The whole prefix
+        cache and the host tier are invalidated (their KV was computed
+        under the old weights) and `weights_version` moves on.
 
-    def adopt_request(self, *args, **kwargs):
-        raise _unported("KV handoff adoption")
+        Refuses while requests are unfinished unless `force=True`: a
+        sequence would mix logits from two policies mid-generation."""
+        if self.has_unfinished() and not force:
+            raise WeightSyncError(
+                "engine has unfinished requests; drain rollouts before "
+                "swapping weights (or pass force=True)")
+        pairs = _leaf_pairs(self.runner.params, params)
+        for name, old, new in pairs:
+            if old.shape != new.shape:
+                raise WeightSyncError(
+                    f"shape mismatch at {name}: engine {tuple(old.shape)}, "
+                    f"payload {tuple(new.shape)}")
+            if old.dtype != new.dtype:
+                raise WeightSyncError(
+                    f"dtype mismatch at {name}: engine {old.dtype}, "
+                    f"payload {new.dtype}")
+        with torch.no_grad():
+            for _, old, new in pairs:
+                old.copy_(new)
+        invalidated = self.block_manager.invalidate_prefix_cache()
+        self.weights_version = (version if version is not None
+                                else self.weights_version + 1)
+        if self.host_prefix_tier is not None:
+            invalidated += self.host_prefix_tier.clear()
+        return {"version": self.weights_version,
+                "invalidated_prefix_entries": invalidated}
+
+    def export_session(self, request_id: str):
+        """Detach a live request wherever it lives, for a move to another
+        engine. Returns (state, mode):
+
+          * ("kv" mode) the request was decoding: state carries its block
+            ids under "blocks", as export_request; the caller gathers the
+            pages and the adopter resumes decode with no re-prefill.
+          * ("replay" mode) the request had not finished prefill: its
+            partial KV is dropped whole and state carries prompt, output
+            and seed only; the importer re-runs from the prompt, and
+            seeded sampling makes the retry token-identical.
+
+        (None, None) when the id is unknown. Call drain_flights() first:
+        a decode export needs dispatched == 0."""
+        for req in self.running:
+            if req.id == request_id:
+                return self.export_request(request_id), "kv"
+        for queue_ in (self.waiting, self.prefilling):
+            for req in list(queue_):
+                if req.id == request_id:
+                    queue_.remove(req)
+                    self._unpin_lora(req)
+                    self._defer_release(req)
+                    return {
+                        "id": req.id,
+                        "prompt": list(req.prompt),
+                        "output": list(req.output),
+                        "seed": req.seed_val,
+                        "lora_slot": req.lora_slot,
+                        "params": dataclasses.asdict(req.params),
+                    }, "replay"
+        return None, None
+
+    def export_request(self, request_id: str) -> Optional[dict]:
+        """Detach a running request for handoff to another engine. Returns
+        its portable state with its (detached) block ids under "blocks";
+        the caller gathers those pages (ModelRunner.gather_pages) and THEN
+        releases them through block_manager.release_blocks, so shared
+        cached prefix blocks stay addressable."""
+        for req in self.running:
+            if req.id == request_id:
+                break
+        else:
+            return None
+        if req.dispatched:
+            raise RuntimeError(
+                f"request {request_id} has in-flight decode steps; call "
+                "drain_flights() first (its pages may still be written)")
+        self.running.remove(req)
+        self._unpin_lora(req)
+        blocks, req.blocks = req.blocks, []
+        return {
+            "id": req.id,
+            "prompt": list(req.prompt),
+            "output": list(req.output),
+            "seed": req.seed_val,
+            "lora_slot": req.lora_slot,
+            "params": dataclasses.asdict(req.params),
+            "blocks": blocks,
+            # The adopter books (adopt time - t_handoff) as handoff_s, or
+            # pause_s for a migration.
+            "timing": dict(req.timing, t_handoff=time.time()),
+        }
+
+    def adopt_request(self, state: dict, k_pages, v_pages) -> bool:
+        """Adopt a request exported by another engine (this package's or
+        the JAX package's; pages in gather_pages' layout): fresh private
+        pages, the KV scattered in, the sequence enters decode directly.
+        Its draws key on (seed, absolute position), both carried in
+        `state`, so it decodes as it would have where it came from.
+        Returns False (nothing allocated) when the pool can't fit it."""
+        params = SamplingParams(**state["params"])
+        req = _Request(state["id"], list(state["prompt"]), params,
+                       int(state.get("lora_slot", 0)))
+        req.output = [int(t) for t in state["output"]]
+        req.seed_val = int(state["seed"])
+        timing = state.get("timing")
+        if timing:
+            for key in ("t_submit", "t_admit", "t_first_token",
+                        "t_last_token", "handoff_s", "pause_s"):
+                if timing.get(key) is not None:
+                    req.timing[key] = timing[key]
+            t_handoff = timing.get("t_handoff")
+            if t_handoff is not None:
+                gap = max(0.0, time.time() - float(t_handoff))
+                key = "pause_s" if state.get("migrated") else "handoff_s"
+                req.timing[key] = float(req.timing.get(key) or 0.0) + gap
+        n_pages = int(np.shape(k_pages)[2])
+        if self.block_manager.blocks_needed(len(req.context)) > n_pages:
+            # The stream must cover every context token's KV: anything less
+            # is a torn export, not pressure.
+            raise ValueError(
+                f"handoff for {req.id} carries {n_pages} pages; "
+                f"{self.block_manager.blocks_needed(len(req.context))} "
+                "needed")
+        if req.lora_slot and self.runner.lora is None:
+            raise ValueError(
+                "handoff carries a LoRA slot but this engine has no LoRA "
+                "manager (both engines must preload identical adapters)")
+        # Headroom for the next token too when the pages cover the context
+        # exactly: decode resumes without an immediate allocation.
+        total = max(n_pages,
+                    self.block_manager.blocks_needed(len(req.context) + 1))
+        ids = self.block_manager.adopt_blocks(total)
+        if ids is None:
+            return False
+        if req.lora_pinned:
+            self.runner.lora.pin(req.lora_slot)
+        req.blocks = ids
+        req.prefilled = len(req.context)
+        self.runner.scatter_pages(ids[:n_pages], k_pages, v_pages)
+        if self.block_manager.caching:
+            # Re-register full prompt blocks under THIS engine's digest
+            # chain: the next prompt sharing the prefix hits locally.
+            req.prefix_hashes = self.block_manager.prefix_hashes(
+                req.prompt, req.lora_slot)
+            full = min(len(req.prompt) // self.block_size, len(ids))
+            while req.registered_blocks < full:
+                j = req.registered_blocks
+                self.block_manager.register_block(
+                    req, j, req.prefix_hashes[j])
+                req.registered_blocks += 1
+        self.running.append(req)
+        return True
+
+    # ---- the host prefix tier (llm/prefix_store.py) ----------------------
+
+    def attach_prefix_store(self, host_tier=None, cluster_store=None):
+        """Wire the host prefix tier in: BlockManager evictions spill
+        through `host_tier` and _admit promotes from it. The cluster tier
+        needs an actor runtime, which the port does not have yet."""
+        if cluster_store is not None:
+            raise _unported("cluster prefix store")
+        self.host_prefix_tier = host_tier
+        self.block_manager.lora_name_fn = self._lora_name
+        if host_tier is not None:
+            self.block_manager.spill_fn = self._spill_block
+
+    def _lora_name(self, lora_slot: int) -> Optional[str]:
+        """Adapter name for a pinned slot: "" = base model, None = cannot
+        resolve (no manager / unknown slot: such KV is unaddressable)."""
+        if lora_slot == 0:
+            return ""
+        lm = self.runner.lora
+        return lm.name_of(lora_slot) if lm is not None else None
+
+    def _spill_block(self, bid: int, h: bytes) -> None:
+        """BlockManager eviction hook: copy the victim block's pages to the
+        host tier before the device page is recycled. The copy runs on the
+        current stream (after every step that wrote the page), before the
+        page is handed out. Best-effort: a failed spill is a future cache
+        miss, never an engine error."""
+        tier = self.host_prefix_tier
+        if tier is None:
+            return
+        meta = self.block_manager.digest_meta.get(h)
+        if meta is None:
+            return
+        slot, lora_name, tokens = meta
+        if lora_name is None:
+            return
+        try:
+            k, v = self.runner.gather_pages([bid])
+        except Exception:
+            return
+        tier.put(h, {"tokens": tokens, "k": k, "v": v, "lora_slot": slot,
+                     "lora_name": lora_name,
+                     "weights_version": self.weights_version,
+                     "nbytes": int(k.nbytes + v.nbytes)})
+
+    def _promote_prefix(self, req: _Request) -> int:
+        """Extend req's cached-chain attachment past the device tier from
+        host RAM, block by block: each promoted block is scattered into a
+        fresh device page and registered under the local digest chain.
+        Returns tokens saved."""
+        bm = self.block_manager
+        bs = self.block_size
+        limit = min(len(req.prefix_hashes), (len(req.prompt) - 1) // bs)
+        promoted = 0
+        tier = self.host_prefix_tier
+        while tier is not None and len(req.blocks) < limit:
+            j = len(req.blocks)
+            e = tier.get(req.prefix_hashes[j])
+            if (e is None
+                    or e.get("weights_version") != self.weights_version
+                    or e.get("lora_name") != self._lora_name(req.lora_slot)
+                    or tuple(e["tokens"])
+                    != tuple(req.prompt[:(j + 1) * bs])):
+                break
+            ids = bm.adopt_blocks(1)
+            if ids is None:
+                break
+            self.runner.scatter_pages(ids, e["k"], e["v"])
+            req.blocks.extend(ids)
+            bm.register_adopted_block(ids[0], req.prefix_hashes[j],
+                                      req.lora_slot, e["tokens"])
+            promoted += bs
+            self.host_prefix_hits += 1
+            self.host_prefix_tokens_saved += bs
+        return promoted
+
+    def adopt_prefix(self, state: dict, k_pages, v_pages) -> int:
+        """Adopt prefix blocks pushed by a draining peer (export_prefixes'
+        state): scatter each block into a fresh page, register it under
+        THIS engine's digest chain and park it in the reusable pool, as if
+        a local request had prefilled and released it. Skips blocks it
+        cannot place (stale weights, unknown adapters, token or shape
+        mismatches, pool pressure). Returns blocks adopted."""
+        if int(state.get("weights_version", 0)) != self.weights_version:
+            return 0
+        entries = state.get("entries") or []
+        if np.ndim(k_pages) != 5 or int(np.shape(k_pages)[2]) != len(
+                entries):
+            return 0
+        bm = self.block_manager
+        bs = self.block_size
+        adopted = 0
+        for i, ent in enumerate(entries):
+            tokens = [int(t) for t in (ent.get("tokens") or [])]
+            if not tokens or len(tokens) % bs:
+                continue
+            lora = ent.get("lora") or ""
+            slot = 0
+            if lora:
+                lm = self.runner.lora
+                try:
+                    slot = lm.slot_of(lora) if lm is not None else None
+                except KeyError:
+                    slot = None
+                if slot is None or self._lora_name(slot) != lora:
+                    continue  # adapter not resident here: unaddressable
+            seed = int(slot).to_bytes(8, "little", signed=True)
+            h = prefix_digest_chain(tokens, bs, seed=seed)[-1]
+            if h in bm.cached:
+                continue
+            ids = bm.adopt_blocks(1)
+            if ids is None:
+                break
+            self.runner.scatter_pages(ids, k_pages[:, :, i:i + 1],
+                                      v_pages[:, :, i:i + 1])
+            if bm.register_adopted_block(ids[0], h, slot, tokens):
+                adopted += 1
+            # Parks in `reusable` (hashed, refcount 0), or returns to
+            # `free` if registration lost the race.
+            bm.release_blocks(ids)
+        return adopted
+
+    def export_prefixes(self, limit: int = 16):
+        """Snapshot the hottest idle prefix blocks for a push to a peer:
+        parked device blocks first (hottest), then host-tier entries.
+        Returns (state, k, v) in adopt_prefix's shape, or None when there
+        is nothing worth pushing."""
+        bm = self.block_manager
+        picked = []
+        for bid in reversed(bm.reusable):
+            h = bm.block_hash.get(bid)
+            meta = bm.digest_meta.get(h) if h is not None else None
+            if meta is None:
+                continue
+            slot, lora_name, tokens = meta
+            if lora_name is None:
+                continue
+            picked.append((bid, lora_name, tokens))
+            if len(picked) >= limit:
+                break
+        entries, ks, vs = [], [], []
+        if picked:
+            k, v = self.runner.gather_pages([b for b, _, _ in picked])
+            ks.append(k)
+            vs.append(v)
+            entries.extend({"tokens": list(t), "lora": name}
+                           for _, name, t in picked)
+        if self.host_prefix_tier is not None and len(entries) < limit:
+            for e in self.host_prefix_tier.hottest(limit - len(entries)):
+                entries.append({"tokens": list(e["tokens"]),
+                                "lora": e["lora_name"]})
+                ks.append(np.asarray(e["k"]))
+                vs.append(np.asarray(e["v"]))
+        if not entries:
+            return None
+        k = np.concatenate(ks, axis=2) if len(ks) > 1 else ks[0]
+        v = np.concatenate(vs, axis=2) if len(vs) > 1 else vs[0]
+        state = {"prefix": True, "entries": entries,
+                 "weights_version": self.weights_version}
+        return state, k, v
 
     def stats(self) -> Dict:
         """Scheduler/cache load signal: queue depths, KV pool occupancy,
@@ -448,7 +933,7 @@ class LLMEngine:
         bm = self.block_manager
         backlog = sum(len(r.context) - r.prefilled for r in self.prefilling)
         backlog += sum(len(r.context) for r in self.waiting)
-        return {
+        out = {
             "waiting": len(self.waiting),
             "prefilling": len(self.prefilling),
             "running": len(self.running),
@@ -460,6 +945,7 @@ class LLMEngine:
             "prefix_tokens_saved": bm.prefix_tokens_saved,
             "prefill_tokens_computed": self.prefill_tokens_computed,
             "queued_prefill_tokens": backlog,
+            "weights_version": self.weights_version,
             "preemptions": self.preemptions,
             "spec_tokens_proposed": self.spec_tokens_proposed,
             "spec_tokens_accepted": self.spec_tokens_accepted,
@@ -469,6 +955,26 @@ class LLMEngine:
             "token_budget": self.token_budget,
             "tick_records": len(self.flight_records),
         }
+        if self.host_prefix_tier is not None:
+            t = self.host_prefix_tier.stats()
+            out.update({
+                "host_prefix_entries": t["entries"],
+                "host_prefix_bytes": t["bytes"],
+                "host_prefix_spills": t["spills"],
+                "host_prefix_demotions": t["demotions"],
+                "host_prefix_hits": self.host_prefix_hits,
+                "host_prefix_tokens_saved": self.host_prefix_tokens_saved,
+            })
+        lm = self.runner.lora
+        if lm is not None:
+            out.update({
+                "lora_slots": lm.n_slots - 1,
+                "lora_loaded": len(lm.loaded),
+                "lora_pinned": len(lm._pins),
+                "lora_loads": lm.loads,
+                "lora_evictions": lm.evictions,
+            })
+        return out
 
     def tick_records(self, limit: Optional[int] = None,
                      request_id: Optional[str] = None) -> List[Dict]:
@@ -533,6 +1039,7 @@ class LLMEngine:
                 r.step(*args)
         warmed = len(combos)
         if self.unified_ticks and self.multi_step == 1:
+            self._check_lora_epoch()
             S = r.batch_bucket(self.max_batch)
             for Tb in token_buckets(self.token_budget):
                 if Tb in self._warm_mixed:
@@ -543,6 +1050,14 @@ class LLMEngine:
         return warmed
 
     # ---- internals -------------------------------------------------------
+
+    def _check_lora_epoch(self) -> None:
+        """A LoRA resize reallocated the slot stacks: every token bucket
+        captures again on its next tick (recorded as a recompile)."""
+        lm = self.runner.lora
+        if lm is not None and lm.epoch != self._warm_epoch:
+            self._warm_mixed.clear()
+            self._warm_epoch = lm.epoch
 
     def _admit(self):
         """waiting -> prefilling while pages for (context + 1 token) and
@@ -558,6 +1073,7 @@ class LLMEngine:
             if len(req.context) + 1 > self._cap_tokens:
                 self.waiting.popleft()
                 req.finished_reason = "length"
+                self._unpin_lora(req)
                 self._rejected.append(RequestOutput(
                     req.id, req.prompt, list(req.output), True, "length",
                     self._detok(req.output)))
@@ -572,9 +1088,14 @@ class LLMEngine:
             if self.block_manager.caching:
                 if req.prefix_hashes is None:
                     req.prefix_hashes = self.block_manager.prefix_hashes(
-                        req.prompt)
+                        req.prompt, req.lora_slot)
                 cached_tokens = self.block_manager.match_prefix(
                     req, req.prefix_hashes)
+                # Device tier exhausted: promote from host RAM, so spilled
+                # blocks re-enter fresh device pages instead of
+                # re-prefilling.
+                if self.host_prefix_tier is not None:
+                    cached_tokens += self._promote_prefix(req)
                 req.registered_blocks = len(req.blocks)
             if not self.block_manager.allocate(req, len(req.context) + 1):
                 raise RuntimeError("KV pool changed between check and "
@@ -647,15 +1168,17 @@ class LLMEngine:
              req.prefilled, req.prefilled + c)
             for req, c in zip(batch, chunks)])
         outputs: List[RequestOutput] = []
+        lora_idx = self._lora_idx(batch, S)
         if self._needs_logits(batch):
-            logits = self.runner.step(*args).cpu().numpy()
+            logits = self.runner.step(*args,
+                                      lora_idx=lora_idx).cpu().numpy()
             sampled = None
         else:
             # A chunk samples at counter kv_len, as the unified tick does.
             counters = args[2].astype(np.int64)
             sampled = self.runner.step_sample(
                 *args, *self._sampling_arrays(batch, S),
-                counters).cpu().numpy()
+                counters, lora_idx=lora_idx).cpu().numpy()
         for i, (req, c) in enumerate(zip(batch, chunks)):
             req.prefilled += c
             self._register_prefilled(req)
@@ -797,15 +1320,16 @@ class LLMEngine:
                                up(tokens[:, 0]))[:, None]
         # Each row samples at counter kv_len, as the unified tick does.
         samp = (*self._sampling_arrays(batch, S), kv_lens.astype(np.int64))
+        lora_idx = self._lora_idx(batch, S)
         if k > 1:
             dev_tokens = self.runner.step_sample_multi(
                 k, toks, q_positions, kv_lens, q_lens, tables,
-                *samp)                                       # (S, k)
+                *samp, lora_idx=lora_idx)                    # (S, k)
             last = dev_tokens[:, -1]
         else:
             last = self.runner.step_sample(
                 toks, q_positions, kv_lens, q_lens, tables,
-                *samp)                                       # (S,)
+                *samp, lora_idx=lora_idx)                    # (S,)
             dev_tokens = last[:, None]
         for req in batch:
             req.dispatched += k
@@ -912,7 +1436,8 @@ class LLMEngine:
         got = self.runner.step_verify(*self._rect_arrays(S, Bq, [
             (req, [req.last_token] + prop, req.num_tokens - 1,
              req.num_tokens + len(prop))
-            for req, prop in zip(batch, proposals)])).cpu().numpy()
+            for req, prop in zip(batch, proposals)]),
+            lora_idx=self._lora_idx(batch, S)).cpu().numpy()
         finished: List[_Request] = []
         for i, (req, prop) in enumerate(zip(batch, proposals)):
             accepted: List[int] = []
@@ -954,7 +1479,8 @@ class LLMEngine:
         self._note(kind="decode_host", decode_rows=len(batch))
         logits = self.runner.step(*self._rect_arrays(S, 1, [
             (req, [req.last_token], req.num_tokens - 1, req.num_tokens)
-            for req in batch])).cpu().numpy()
+            for req in batch]),
+            lora_idx=self._lora_idx(batch, S)).cpu().numpy()
         finished: List[_Request] = []
         for i, req in enumerate(batch):
             token = sample(logits[i], req.params, np.asarray(req.context))
@@ -984,6 +1510,7 @@ class LLMEngine:
         host when it returns."""
         outputs: List[RequestOutput] = []
         self._drain_release()
+        self._check_lora_epoch()
         W = self._spec_width
         budget = self.token_budget
         # The batch dimension is pinned to one bucket, and the composer
@@ -1086,11 +1613,12 @@ class LLMEngine:
             counters[i] = e["counter"]
             pos += n
         cu[len(entries) + 1:] = pos
-        temps, top_ks, top_ps, seeds = self._sampling_arrays(
-            [e["req"] for e in entries], S)
+        reqs = [e["req"] for e in entries]
+        temps, top_ks, top_ps, seeds = self._sampling_arrays(reqs, S)
         accept, samples = self.runner.step_mixed(
             flat, q_positions, kv_lens, cu, tables, out_rows, props,
-            prop_lens, temps, top_ks, top_ps, seeds, counters)
+            prop_lens, temps, top_ks, top_ps, seeds, counters,
+            lora_idx=self._lora_idx(reqs, S))
         self.ticks += 1
         # -- commit ---------------------------------------------------------
         for i, e in enumerate(entries):
@@ -1149,6 +1677,8 @@ class LLMEngine:
         req.timing["t_last_token"] = now
         self._check_finished(req)
         done = req.finished_reason is not None
+        if done:
+            self._unpin_lora(req)
         return RequestOutput(
             req.id, req.prompt, list(req.output), done, req.finished_reason,
             self._detok(req.output) if done else None, new_tokens)

@@ -34,13 +34,25 @@ Port of ray_tpu/llm/model_runner.py:
     for it, and the split decode's sampled ids come back through
     `HostCopy`: nothing on the decode dispatch path synchronises. The
     split path's steps run eagerly.
+  * Multi-LoRA (`lora_manager`, llm/lora.py): every entry point takes a
+    per-sequence adapter slot (`lora_idx`) and each target projection
+    adds its delta where JAX's `proj` does. The slot stacks are static
+    tensors of the captured graphs and the slot index one more field of
+    the packed upload; a graph key holds the stacks' epoch, so a
+    `resize` recaptures. Without a manager no step holds a LoRA
+    operation.
+  * The page plane: `gather_pages` / `scatter_pages` move whole KV pages
+    between the pool and host arrays in JAX's layout (bf16 as uint16
+    bits), for request export/adopt and the host prefix tier.
 
 The KV pool is updated in place (JAX donates and rebinds it). It holds
 one scratch page past the block manager's `num_blocks`, the counterpart
 of JAX's out-of-bounds drop: the unified step's padding rows write there,
 so its KV write has one shape per bucket. No block table names it. A
-captured graph holds the pool's and the parameters' addresses: neither
-is ever replaced.
+captured graph holds the addresses of the pool, the parameters and the
+LoRA stacks: `scatter_pages`, `LoRAManager.load_adapter` and
+`LLMEngine.update_weights` write into them in place; only a LoRA
+`resize` reallocates, and it recaptures.
 """
 
 from __future__ import annotations
@@ -53,6 +65,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from ray_tpu_torch.llm.lora import slot_mask
 from ray_tpu_torch.models import llama as llama_mod
 from ray_tpu_torch.ops import paged_attention as pa
 from ray_tpu_torch.ops import resolve_device
@@ -234,14 +247,18 @@ def acceptance_sample(logits, proposals, prop_lens, temps, top_ks, top_ps,
 _FLOAT_FIELDS = ("temps", "top_ps")
 
 
-def mixed_layout(T: int, S: int, W: int, max_pages: int):
+def mixed_layout(T: int, S: int, W: int, max_pages: int,
+                 lora: bool = False):
     """{field: (offset, shape)} of the packed input of a mixed step for
-    token bucket T, S sequences, W rows per sequence; and its length."""
+    token bucket T, S sequences, W rows per sequence; and its length.
+    With `lora`, the (S,) adapter slot per sequence rides last."""
     shapes = {"tokens": (T,), "q_positions": (S,), "kv_lens": (S,),
               "cu_q_lens": (S + 1,), "block_tables": (S, max_pages),
               "out_rows": (S, W), "proposals": (S, W), "prop_lens": (S,),
               "top_ks": (S,), "seeds": (S,), "counters": (S,),
               "temps": (S,), "top_ps": (S,)}
+    if lora:
+        shapes["lora_idx"] = (S,)
     layout, at = {}, 0
     for name, shape in shapes.items():
         layout[name] = (at, shape)
@@ -343,7 +360,8 @@ class ModelRunner:
                  num_blocks: int, block_size: int = 16,
                  chunk_size: int = 128,
                  max_blocks_per_seq: Optional[int] = None,
-                 device="cuda", cuda_graphs: Optional[bool] = None):
+                 device="cuda", cuda_graphs: Optional[bool] = None,
+                 lora_manager=None):
         self.device = resolve_device(device)
         if cuda_graphs and self.device.type != "cuda":
             raise ValueError(f"cuda_graphs=True needs a CUDA device, not "
@@ -365,6 +383,13 @@ class ModelRunner:
         self.max_blocks_per_seq = max_blocks_per_seq or (
             (config.max_seq + block_size - 1) // block_size)
         self.params = _place(params, self.device)
+        # Multi-LoRA (llm/lora.py): with a manager, every step takes a
+        # per-sequence slot index and adds each target's delta; without
+        # one, no step (and no captured graph) holds a LoRA operation.
+        self.lora = lora_manager
+        if lora_manager is not None and lora_manager.device != self.device:
+            raise ValueError(f"LoRA stacks on {lora_manager.device}, runner "
+                             f"on {self.device}")
         # Page num_blocks is the scratch page of the unified step's
         # padding rows.
         self.cache = init_kv_cache(config, num_blocks + 1, block_size,
@@ -376,6 +401,7 @@ class ModelRunner:
         self.step_compiles = 0
         self._graphs: Dict[tuple, _MixedGraph] = {}
         self._graph_pool = None
+        self._graph_epoch = 0   # the LoRA stacks' epoch the graphs hold
         # fp32 logits (S*W, V) of the last mixed step, for inspection (on
         # the card with graphs: the bucket's static output).
         self.last_logits: Optional[torch.Tensor] = None
@@ -404,11 +430,68 @@ class ModelRunner:
 
     # ---- the unified ragged step -----------------------------------------
 
+    def _lora_mask(self, tok_slots) -> Optional[torch.Tensor]:
+        """(T,) adapter slot per row -> the (T, n_slots * r) mask of the
+        rows' own slot columns; None without a manager."""
+        lm = self.lora
+        if lm is None:
+            return None
+        return slot_mask(tok_slots, lm.n_slots, lm.rank, self.config.dtype)
+
+    def _project(self, h, li: int, names, mask):
+        """h @ W of layer li for each target in `names` (targets that read
+        the same input). With a LoRA mask each adapter target adds its
+        delta where JAX's `proj` does: one product of h with the group's
+        A of every slot, the columns of other slots zeroed, then one
+        in-place addmm per target with its B of every slot."""
+        layers = self.params["layers"]
+        outs = [h @ layers[n][li] for n in names]
+        lm = self.lora
+        if mask is None:
+            return outs
+        group = tuple(n for n in names if n in lm.b)
+        if not group:
+            return outs
+        N = lm.n_slots * lm.rank
+        mid = (h @ lm.a_group[group][li]).view(-1, len(group), N)
+        mid = mid * mask[:, None, :]
+        for g, n in enumerate(group):
+            outs[names.index(n)].addmm_(mid[:, g], lm.b[n][li])
+        return outs
+
+    def _layers(self, x, rope_pos, mask, attend, write_kv):
+        """The decoder layers over flat rows x (T, d) at RoPE positions
+        rope_pos (T,): `write_kv(li, k, v)` stores the layer's K/V (T, K,
+        hd), `attend(li, q)` returns its attention output (T, H, hd).
+        Returns the final-normed hidden states."""
+        config = self.config
+        T = x.shape[0]
+        params = self.params
+        H, K, hd = config.n_heads, config.n_kv_heads, config.head_dim
+        layers = params["layers"]
+        for li in range(config.n_layers):
+            h = rms_norm(x, layers["attn_norm"][li], config.norm_eps)
+            q, k, v = self._project(h, li, ("wq", "wk", "wv"), mask)
+            q = apply_rope(q.reshape(T, H, hd), self.cos, self.sin,
+                           rope_pos)
+            k = apply_rope(k.reshape(T, K, hd), self.cos, self.sin,
+                           rope_pos)
+            write_kv(li, k, v.reshape(T, K, hd))
+            attn = attend(li, q)
+            x = x + self._project(attn.reshape(T, H * hd), li, ("wo",),
+                                  mask)[0]
+            h = rms_norm(x, layers["mlp_norm"][li], config.norm_eps)
+            gate, up = self._project(h, li, ("w_gate", "w_up"), mask)
+            x = x + self._project(swiglu(gate, up), li, ("w_down",),
+                                  mask)[0]
+        return rms_norm(x, params["final_norm"], config.norm_eps)
+
     def _backbone_mixed(self, tokens, q_positions, kv_lens, cu_q_lens,
-                        block_tables) -> torch.Tensor:
+                        block_tables, lora_idx=None) -> torch.Tensor:
         """Token-major backbone: `tokens` is flat (T,); sequence s owns rows
         [cu_q_lens[s], cu_q_lens[s+1]) and rows from cu_q_lens[S] on are
-        padding. Writes this step's K/V into the pool (padding rows into
+        padding. `lora_idx` (S,) is each sequence's adapter slot (with a
+        manager). Writes this step's K/V into the pool (padding rows into
         the scratch page) and returns the final hidden states (T, d).
         Every shape is fixed by the bucket: nothing reads a value on the
         host."""
@@ -416,8 +499,7 @@ class ModelRunner:
         params = self.params
         T = tokens.shape[0]
         S = kv_lens.shape[0]
-        H, K, hd = config.n_heads, config.n_kv_heads, config.head_dim
-        scale = 1.0 / math.sqrt(hd)
+        scale = 1.0 / math.sqrt(config.head_dim)
         seq = pa.token_seq_ids(cu_q_lens, T, S)
         tok = torch.arange(T, device=self.device)
         local = tok - cu_q_lens.long()[seq]
@@ -433,29 +515,23 @@ class ModelRunner:
                                 self.num_blocks)
         offsets = positions % self.block_size
         rope_pos = torch.clamp(positions, 0, config.max_seq - 1)
-        layers = params["layers"]
-        for li in range(config.n_layers):
-            h = rms_norm(x, layers["attn_norm"][li], config.norm_eps)
-            q = (h @ layers["wq"][li]).reshape(T, H, hd)
-            k = (h @ layers["wk"][li]).reshape(T, K, hd)
-            v = (h @ layers["wv"][li]).reshape(T, K, hd)
-            q = apply_rope(q, self.cos, self.sin, rope_pos)
-            k = apply_rope(k, self.cos, self.sin, rope_pos)
-            ck, cv = self.cache["k"][li], self.cache["v"][li]
+        mask = (self._lora_mask(lora_idx.long()[seq])
+                if lora_idx is not None else None)
+
+        def write_kv(li, k, v):
             # ck is (K, num_blocks + 1, ps, hd): indexing [:, ids, offs]
             # keeps the kv-head dim FIRST, so the value is (K, T, hd) —
             # token i's K lands in page ids[i], slot offs[i], as JAX's
             # ck.at[li, :, ids, offs].set((T, K, hd)) writes it.
-            ck[:, block_ids, offsets] = k.transpose(0, 1)
-            cv[:, block_ids, offsets] = v.transpose(0, 1)
-            attn = self._unified_attention(
-                q, ck, cv, block_tables, kv_lens, q_positions, cu_q_lens,
-                scale=scale)
-            x = x + attn.reshape(T, H * hd) @ layers["wo"][li]
-            h = rms_norm(x, layers["mlp_norm"][li], config.norm_eps)
-            x = x + swiglu(h @ layers["w_gate"][li],
-                           h @ layers["w_up"][li]) @ layers["w_down"][li]
-        return rms_norm(x, params["final_norm"], config.norm_eps)
+            self.cache["k"][li][:, block_ids, offsets] = k.transpose(0, 1)
+            self.cache["v"][li][:, block_ids, offsets] = v.transpose(0, 1)
+
+        def attend(li, q):
+            return self._unified_attention(
+                q, self.cache["k"][li], self.cache["v"][li], block_tables,
+                kv_lens, q_positions, cu_q_lens, scale=scale)
+
+        return self._layers(x, rope_pos, mask, attend, write_kv)
 
     def _logits(self, rows: torch.Tensor) -> torch.Tensor:
         """lm_head with fp32 accumulation AND fp32 output (not a bf16
@@ -476,7 +552,7 @@ class ModelRunner:
         a = unpack_mixed(buf, layout)
         x = self._backbone_mixed(a["tokens"], a["q_positions"],
                                  a["kv_lens"], a["cu_q_lens"],
-                                 a["block_tables"])
+                                 a["block_tables"], a.get("lora_idx"))
         logits = self._logits(x[a["out_rows"].reshape(-1).long()])
         accept, samples = acceptance_sample(
             logits, a["proposals"], a["prop_lens"], a["temps"],
@@ -485,15 +561,17 @@ class ModelRunner:
                           accept.reshape(-1).to(torch.int32)]), logits
 
     def _capture(self, key: tuple) -> _MixedGraph:
-        """Capture `key` = (T, S, W, max_pages, sampled), a token bucket's
-        sampled or all-greedy step, into a CUDA graph in the runner's one
-        graph pool. The step first runs once
+        """Capture `key` = (T, S, W, max_pages, sampled, LoRA epoch), a
+        token bucket's sampled or all-greedy step, into a CUDA graph in the
+        runner's one graph pool. The LoRA stacks of that epoch are static
+        tensors of the capture, as the parameters and the KV pool are. The
+        step first runs once
         eagerly on a side stream on all-padding input (only the scratch
         page is written): the kernel library's build and attributes and
         cuBLAS's handles and workspaces are set up there, never inside the
         capture. A failed capture raises."""
-        *shape, sampled = key
-        layout, size = mixed_layout(*shape)
+        *shape, sampled, _ = key
+        layout, size = mixed_layout(*shape, lora=self.lora is not None)
         dev_in = torch.zeros(size, dtype=torch.int32, device=self.device)
         current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
@@ -518,6 +596,23 @@ class ModelRunner:
         self._graphs[key] = entry
         return entry
 
+    def _lora_epoch(self) -> int:
+        """The LoRA stacks' epoch (0 without a manager). A resize moves it
+        on: the graphs of the old stacks are released and each bucket's
+        next step captures again."""
+        if self.lora is None:
+            return 0
+        epoch = self.lora.epoch
+        if epoch != self._graph_epoch:
+            for g in self._graphs.values():
+                g.graph.reset()
+            self._graphs.clear()
+            # The released pool cannot take new captures: start another;
+            # the old one's memory returns once its last output is gone.
+            self._graph_pool = None
+            self._graph_epoch = epoch
+        return epoch
+
     @torch.no_grad()
     def step_mixed(self, tokens, q_positions, kv_lens, cu_q_lens,
                    block_tables, out_rows, proposals, prop_lens, temps,
@@ -533,21 +628,30 @@ class ModelRunner:
         first use (counted in step_compiles, as a new variant is on the
         CPU), then each call packs the inputs into its pinned buffer,
         uploads them with one copy, replays and reads back one int32
-        array."""
-        if lora_idx is not None:
-            raise ValueError("LoRA is not ported yet (ROADMAP.md)")
+        array.
+
+        With a LoRA manager, `lora_idx` (S,) is each sequence's adapter
+        slot (None: all slot 0); it rides in the packed upload. The graph
+        key holds the stacks' epoch: after a `resize` each bucket captures
+        again, counted in step_compiles."""
         T = np.shape(tokens)[0]
         S, W = np.shape(out_rows)
         sampled = bool((np.asarray(temps) > 0).any())
-        key = (T, S, W, np.shape(block_tables)[1], sampled)
-        layout, size = mixed_layout(*key[:4])
-        kind = "mixed" if sampled else "mixed_greedy"
+        epoch = self._lora_epoch()
+        key = (T, S, W, np.shape(block_tables)[1], sampled, epoch)
+        lora = self.lora is not None
+        layout, size = mixed_layout(*key[:4], lora=lora)
+        kind = ("mixed" if sampled else "mixed_greedy") + (
+            f"@lora{epoch}" if epoch else "")
         arrays = dict(tokens=tokens, q_positions=q_positions,
                       kv_lens=kv_lens, cu_q_lens=cu_q_lens,
                       block_tables=block_tables, out_rows=out_rows,
                       proposals=proposals, prop_lens=prop_lens, temps=temps,
                       top_ks=top_ks, top_ps=top_ps, seeds=seeds,
                       counters=counters)
+        if lora:
+            arrays["lora_idx"] = (np.zeros(S, np.int32) if lora_idx is None
+                                  else lora_idx)
         if self.cuda_graphs:
             g = self._graphs.get(key)
             if g is None:
@@ -578,22 +682,25 @@ class ModelRunner:
             self.step_mixed(
                 z(T), z(S), z(S), z(S + 1), z(S, self.max_blocks_per_seq),
                 z(S, W), z(S, W), z(S), np.full(S, temp, np.float32), z(S),
-                np.ones(S, np.float32), z(S), z(S))
+                np.ones(S, np.float32), z(S), z(S),
+                lora_idx=z(S) if self.lora is not None else None)
 
     # ---- the rectangular steps of the split path -------------------------
 
     def _backbone(self, tokens, q_positions, kv_lens, q_lens,
-                  block_tables) -> torch.Tensor:
+                  block_tables, lora_idx=None) -> torch.Tensor:
         """Rectangular backbone: `tokens` (S, Bq) is a host array or a
         device tensor (the previous step's sampled ids); q_positions,
-        kv_lens, q_lens (S,) and block_tables (S, max_pages) are host
-        arrays. Row (s, b) sits at position q_positions[s] + b. Writes the
-        K/V of the valid rows b < q_lens[s] into the pool and returns the
-        final hidden states, flat (S * Bq, d)."""
+        kv_lens, q_lens (S,), block_tables (S, max_pages) and lora_idx
+        (S,), the adapter slot per sequence (with a manager; None means
+        slot 0), are host arrays. Row (s, b) sits at position
+        q_positions[s] + b. Writes the K/V of the valid rows b < q_lens[s]
+        into the pool and returns the final hidden states, flat
+        (S * Bq, d)."""
         config = self.config
         params = self.params
         S, Bq = np.shape(tokens)
-        H, K, hd = config.n_heads, config.n_kv_heads, config.head_dim
+        H, hd = config.n_heads, config.head_dim
         scale = 1.0 / math.sqrt(hd)
         tables = np.asarray(block_tables)
         positions = (np.asarray(q_positions, np.int64)[:, None]
@@ -616,79 +723,81 @@ class ModelRunner:
         q_pos_t = self.to_device(q_positions)
         x = params["embed"][self.to_device(tokens, torch.long).reshape(-1)]
         x = x.to(config.dtype)                                  # (S*Bq, d)
-        layers = params["layers"]
-        for li in range(config.n_layers):
-            h = rms_norm(x, layers["attn_norm"][li], config.norm_eps)
-            q = (h @ layers["wq"][li]).reshape(S * Bq, H, hd)
-            k = (h @ layers["wk"][li]).reshape(S * Bq, K, hd)
-            v = (h @ layers["wv"][li]).reshape(S * Bq, K, hd)
-            q = apply_rope(q, self.cos, self.sin, rope_pos)
-            k = apply_rope(k, self.cos, self.sin, rope_pos)
-            ck, cv = self.cache["k"][li], self.cache["v"][li]
+        mask = None
+        if self.lora is not None:
+            slots = (np.zeros(S, np.int64) if lora_idx is None
+                     else np.asarray(lora_idx, np.int64))
+            mask = self._lora_mask(self.to_device(np.repeat(slots, Bq),
+                                                  torch.long))
+
+        def write_kv(li, k, v):
             if n_valid:
                 # Kv-head dim first, as in _backbone_mixed.
-                ck[:, block_ids, offsets] = k[rows].transpose(0, 1)
-                cv[:, block_ids, offsets] = v[rows].transpose(0, 1)
-            attn = self._rect_attention(
-                q.reshape(S, Bq, H, hd), ck, cv, tables_t, kv_lens_t,
-                q_pos_t, scale=scale)
-            x = x + attn.reshape(S * Bq, H * hd) @ layers["wo"][li]
-            h = rms_norm(x, layers["mlp_norm"][li], config.norm_eps)
-            x = x + swiglu(h @ layers["w_gate"][li],
-                           h @ layers["w_up"][li]) @ layers["w_down"][li]
-        return rms_norm(x, params["final_norm"], config.norm_eps)
+                self.cache["k"][li][:, block_ids, offsets] = \
+                    k[rows].transpose(0, 1)
+                self.cache["v"][li][:, block_ids, offsets] = \
+                    v[rows].transpose(0, 1)
+
+        def attend(li, q):
+            return self._rect_attention(
+                q.reshape(S, Bq, H, hd), self.cache["k"][li],
+                self.cache["v"][li], tables_t, kv_lens_t, q_pos_t,
+                scale=scale)
+
+        return self._layers(x, rope_pos, mask, attend, write_kv)
 
     def _last_logits(self, tokens, q_positions, kv_lens, q_lens,
-                     block_tables) -> torch.Tensor:
+                     block_tables, lora_idx=None) -> torch.Tensor:
         """fp32 logits (S, vocab) of each sequence's last real row: only
         those rows pay the vocab matmul."""
         x = self._backbone(tokens, q_positions, kv_lens, q_lens,
-                           block_tables)
+                           block_tables, lora_idx)
         S, Bq = np.shape(tokens)
         last = np.arange(S) * Bq + np.maximum(np.asarray(q_lens) - 1, 0)
         return self._logits(x[self.to_device(last, torch.long)])
 
     @torch.no_grad()
     def step(self, tokens, q_positions, kv_lens, q_lens,
-             block_tables) -> torch.Tensor:
+             block_tables, lora_idx=None) -> torch.Tensor:
         """One rectangular step; inputs are host arrays padded to a
-        (batch, Bq) bucket by the engine. Returns fp32 logits (S, vocab) of
+        (batch, Bq) bucket by the engine (lora_idx (S,): each sequence's
+        adapter slot, with a manager). Returns fp32 logits (S, vocab) of
         the last real row per sequence, on the device (host sampling)."""
         self._note_shapes("step", tokens, block_tables)
         return self._last_logits(tokens, q_positions, kv_lens, q_lens,
-                                 block_tables)
+                                 block_tables, lora_idx)
 
     @torch.no_grad()
     def step_verify(self, tokens, q_positions, kv_lens, q_lens,
-                    block_tables) -> torch.Tensor:
+                    block_tables, lora_idx=None) -> torch.Tensor:
         """Speculative-verify step: greedy ids (S, Bq) int32 on the device;
         row j's id is the model's next token after tokens[:, :j+1]. The
         same `_logits` expression as `step` and `step_mixed`, so all heads
         round alike."""
         self._note_shapes("verify", tokens, block_tables)
         x = self._backbone(tokens, q_positions, kv_lens, q_lens,
-                           block_tables)
+                           block_tables, lora_idx)
         return torch.argmax(self._logits(x), dim=-1).to(
             torch.int32).reshape(np.shape(tokens))
 
     @torch.no_grad()
     def step_sample(self, tokens, q_positions, kv_lens, q_lens,
                     block_tables, temps, top_ks, top_ps, seeds,
-                    counters) -> torch.Tensor:
+                    counters, lora_idx=None) -> torch.Tensor:
         """Rectangular step + sampling on the device. `tokens` may be a
         device tensor (the previous step's ids: chaining without a host
         sync). Returns the sampled ids (S,) int32 on the device; the
         caller decides when to fetch them."""
         self._note_shapes("sample", tokens, block_tables)
         logits = self._last_logits(tokens, q_positions, kv_lens, q_lens,
-                                   block_tables)
+                                   block_tables, lora_idx)
         return self._device_sample(logits, temps, top_ks, top_ps, seeds,
                                    counters)
 
     @torch.no_grad()
     def step_sample_multi(self, n_steps: int, tokens, q_positions, kv_lens,
                           q_lens, block_tables, temps, top_ks, top_ps, seeds,
-                          counters) -> torch.Tensor:
+                          counters, lora_idx=None) -> torch.Tensor:
         """n_steps decode tokens per sequence in one call (JAX's lax.scan
         as a loop): each step's sampled ids feed the next on the device,
         with q_positions, kv_lens and counters advanced by the step; no
@@ -701,12 +810,54 @@ class ModelRunner:
         out = []
         for step in range(n_steps):
             logits = self._last_logits(tokens, q_positions + step,
-                                       kv_lens + step, q_lens, block_tables)
+                                       kv_lens + step, q_lens, block_tables,
+                                       lora_idx)
             sampled = self._device_sample(logits, temps, top_ks, top_ps,
                                           seeds, counters + step)
             out.append(sampled)
             tokens = sampled[:, None]
         return torch.stack(out, dim=1)
+
+    # ---- the KV page plane ------------------------------------------------
+
+    @property
+    def kv_dtype_name(self) -> str:
+        """The pool's dtype as the page codec names it ("bfloat16",
+        "float32"): host copies of bf16 pages are its uint16 bits."""
+        return str(self.cache["k"].dtype).replace("torch.", "")
+
+    def _page_ids(self, block_ids: Sequence[int]) -> torch.Tensor:
+        """Explicit pool pages only: no drop sentinel (-1 would wrap onto
+        the last page), never the scratch page."""
+        ids = [int(b) for b in block_ids]
+        bad = [b for b in ids if not 0 <= b < self.num_blocks]
+        if bad:
+            raise ValueError(f"page ids {bad} outside [0, {self.num_blocks})")
+        return torch.tensor(ids, dtype=torch.long).to(self.device)
+
+    def gather_pages(self, block_ids: Sequence[int]):
+        """The KV pages backing `block_ids` as host arrays, each
+        (n_layers, n_kv_heads, n_pages, block_size, head_dim), JAX's
+        layout. bf16 pages come back as their uint16 bits (numpy has no
+        bf16). The copy runs on the current stream, after every step
+        queued there."""
+        ids = self._page_ids(block_ids)
+        return tuple(llama_mod.to_numpy(self.cache[side].index_select(2, ids))
+                     for side in ("k", "v"))
+
+    def scatter_pages(self, block_ids: Sequence[int], k_pages, v_pages):
+        """Write pages (gather_pages' layout; numpy, JAX bf16 arrays, their
+        uint16 bits, or tensors) into the pool at `block_ids`, in place:
+        the pool a captured graph holds is never reallocated."""
+        ids = self._page_ids(block_ids)
+        pool = self.cache["k"]
+        want = pool.shape[:2] + (len(ids),) + pool.shape[3:]
+        for side, pages in (("k", k_pages), ("v", v_pages)):
+            t = _device_pages(pages, pool.dtype, self.device)
+            if tuple(t.shape) != tuple(want):
+                raise ValueError(f"{side} pages {tuple(t.shape)}, the pool "
+                                 f"takes {tuple(want)}")
+            self.cache[side].index_copy_(2, ids, t)
 
     # ---- on-device sampling of the split path ------------------------------
 
@@ -746,6 +897,16 @@ class ModelRunner:
 
     def chunk_bucket(self, n: int) -> int:
         return _bucket(n, self.chunk_buckets())
+
+
+def _device_pages(pages, dtype: torch.dtype, device) -> torch.Tensor:
+    """Host or device pages -> a tensor of the pool's dtype on `device`.
+    16-bit integer payloads are bf16 bits."""
+    if not isinstance(pages, torch.Tensor):
+        pages = llama_mod.to_torch(np.asarray(pages))
+    if pages.dtype in (torch.int16, torch.uint16):
+        pages = pages.view(torch.bfloat16)
+    return pages.to(device=device, dtype=dtype)
 
 
 def _place(tree, device: torch.device):

@@ -3,9 +3,12 @@
 Port of the replica side of ray_tpu/llm/serving.py: a background thread
 drives the engine's step loop while request threads enqueue prompts and
 consume per-request queues, so many requests stream concurrently through
-one continuously-batched engine. The cluster deployment, router, disagg
-tiers, prefix-store tiers, LoRA and migration are later slices; the
-engine refuses their options with a ValueError.
+one continuously-batched engine. Requests may name a LoRA adapter
+(`lora_name`); adapters load at build (`LLMConfig.lora_adapters`) or at
+run time (`load_lora_adapter`), and the slot pool may scale itself
+(`lora_autoscale`). Evicted prefix blocks spill to a host tier
+(`host_prefix_mb`). The cluster deployment, router, disagg tiers, the
+cluster prefix tier and migration are later slices.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from ray_tpu_torch.llm.engine import _unported
 from ray_tpu_torch.llm.sampling import SamplingParams
 from ray_tpu_torch.ops import resolve_device
 
@@ -40,6 +44,14 @@ class LLMConfig:
     max_batch_size: int = 8
     prefill_chunk: int = 128
     tokenizer: Any = None
+    # Multi-LoRA (llm/lora.py): preloaded adapters and the slot table's
+    # size; the pool scales itself off engine stats with lora_autoscale.
+    lora_adapters: Any = None           # list[LoRAAdapter] | None
+    max_loras: int = 8
+    lora_rank: int = 8
+    lora_autoscale: bool = False
+    lora_min_slots: int = 1
+    lora_max_slots: int = 32
     enable_prefix_caching: bool = True
     speculative_ngram: int = 0
     decode_multi_step: int = 1
@@ -50,6 +62,13 @@ class LLMConfig:
     # "light" = the sequential-traffic set, "off" = none.
     warmup_buckets: str = "full"
     stream_timeout_s: float = 300.0
+    # Host prefix tier (llm/prefix_store.py): evicted prefix blocks spill
+    # to host RAM and are promoted back at admission; 0 disables it. The
+    # cluster tier needs an actor runtime: outside a cluster the JAX
+    # server leaves it off too, and here it stays off.
+    host_prefix_mb: float = 32.0
+    host_prefix_low_watermark: float = 0.8
+    cluster_prefix_store: bool = True
     device: Any = "cuda"
 
 
@@ -74,11 +93,20 @@ def build_engine(llm_config: LLMConfig, params: Optional[Dict] = None,
     if params is None:
         gen = torch.Generator(device=device).manual_seed(llm_config.seed)
         params = llama.init_params(config, gen, device)
+    lora_manager = None
+    if llm_config.lora_adapters:
+        from ray_tpu_torch.llm.lora import LoRAManager
+
+        lora_manager = LoRAManager(config, n_slots=llm_config.max_loras,
+                                   rank=llm_config.lora_rank, device=device)
+        for adapter in llm_config.lora_adapters:
+            lora_manager.load_adapter(adapter)
     runner = ModelRunner(config, params,
                          num_blocks=llm_config.num_kv_blocks,
                          block_size=llm_config.block_size,
                          chunk_size=llm_config.prefill_chunk,
-                         device=device, cuda_graphs=cuda_graphs)
+                         device=device, cuda_graphs=cuda_graphs,
+                         lora_manager=lora_manager)
     engine = LLMEngine(
         runner, max_batch_size=llm_config.max_batch_size,
         tokenizer=llm_config.tokenizer,
@@ -120,6 +148,22 @@ class LLMServer:
         self.tokenizer = llm_config.tokenizer
         self._timeout_s = llm_config.stream_timeout_s
         self._lock = threading.Lock()
+        if llm_config.host_prefix_mb > 0:
+            from ray_tpu_torch.llm.prefix_store import HostPrefixTier
+
+            self.engine.attach_prefix_store(host_tier=HostPrefixTier(
+                int(llm_config.host_prefix_mb * (1 << 20)),
+                low_watermark=llm_config.host_prefix_low_watermark))
+        # LoRA pool autoscaling: ticked at 1 Hz from the engine loop.
+        self._lora_policy = None
+        if llm_config.lora_autoscale and self.engine.runner.lora is not None:
+            from ray_tpu_torch.llm.lora import (LoRAPoolPolicy,
+                                                LoRAPoolPolicyConfig)
+
+            self._lora_policy = LoRAPoolPolicy(LoRAPoolPolicyConfig(
+                min_slots=llm_config.lora_min_slots,
+                max_slots=llm_config.lora_max_slots))
+        self._policy_t0 = time.monotonic()
         # request_id -> per-request queue; the loop fans outputs out here.
         self._streams: Dict[str, queue.Queue] = {}
         self._stop = threading.Event()
@@ -142,6 +186,13 @@ class LLMServer:
 
     def _engine_loop(self):
         while not self._stop.is_set():
+            now = time.monotonic()
+            if self._lora_policy is not None and now - self._policy_t0 >= 1:
+                self._policy_t0 = now
+                try:
+                    self._lora_pool_tick(now)
+                except Exception:
+                    log.exception("LoRA pool tick failed")
             try:
                 with self._lock:
                     busy = self.engine.has_unfinished()
@@ -162,7 +213,43 @@ class LLMServer:
             if not busy:
                 time.sleep(0.002)
 
-    def _submit(self, prompt, params, request_id: Optional[str]) -> str:
+    def _lora_pool_tick(self, now: float) -> None:
+        """LoRA pool autoscale: LoRAPoolPolicy reads the engine stats and,
+        when the watermarks say so, resizes the slot table under the
+        engine lock (between ticks; the next tick recaptures)."""
+        mgr = self.engine.runner.lora
+        with self._lock:
+            target = self._lora_policy.desired(self.engine.stats(), now)
+            if target is not None and target != mgr.n_slots - 1:
+                mgr.resize(target)
+
+    def load_lora_adapter(self, adapter) -> Dict:
+        """Install a LoRAAdapter at run time (LRU-evicting when full),
+        under the engine lock: between ticks, on the stream the replays
+        use, so the next tick reads it with no recapture."""
+        if self.engine.runner.lora is None:
+            raise ValueError("server built without LoRA support "
+                             "(set LLMConfig.lora_adapters)")
+        with self._lock:
+            slot = self.engine.runner.lora.load_adapter(adapter)
+        return {"name": adapter.name, "slot": slot}
+
+    def list_lora_adapters(self) -> Dict:
+        mgr = self.engine.runner.lora
+        return {"adapters": mgr.loaded if mgr is not None else []}
+
+    def completions_collect(self, request_id: str) -> Dict:
+        """The decode side of disaggregated serving: needs the KV stream
+        wire between replicas (an actor runtime), a later slice."""
+        raise _unported("disaggregated serving (completions_collect)")
+
+    def migrate_sessions(self, *args, **kwargs) -> Dict:
+        """Live session migration to another replica: needs the KV stream
+        wire between replicas (an actor runtime), a later slice."""
+        raise _unported("live session migration (migrate_sessions)")
+
+    def _submit(self, prompt, params, request_id: Optional[str],
+                lora_name: Optional[str] = None) -> str:
         # A caller-assigned id seeds sampling (crc32 of the id when no
         # explicit seed is set): a replay under the same id redraws the
         # same tokens.
@@ -171,7 +258,8 @@ class LLMServer:
         self._streams[rid] = q
         try:
             with self._lock:
-                self.engine.add_request(prompt, params, request_id=rid)
+                self.engine.add_request(prompt, params, request_id=rid,
+                                        lora_name=lora_name)
         except Exception:
             self._streams.pop(rid, None)
             raise
@@ -183,8 +271,6 @@ class LLMServer:
             if self.tokenizer is None:
                 raise ValueError("string prompts require a tokenizer")
             prompt = self.tokenizer.encode(prompt)
-        if request.get("lora_name"):
-            raise ValueError("LoRA is not ported to ray_tpu_torch yet")
         params = SamplingParams(
             temperature=float(request.get("temperature", 0.0)),
             top_k=int(request.get("top_k", 0)),
@@ -193,7 +279,8 @@ class LLMServer:
             stop_token_ids=request.get("stop_token_ids"),
             repetition_penalty=float(request.get("repetition_penalty", 1.0)),
             seed=request.get("seed"))
-        return prompt, params, request.get("request_id")
+        return (prompt, params, request.get("request_id"),
+                request.get("lora_name"))
 
     def _next(self, rid: str, q: queue.Queue):
         try:
@@ -233,9 +320,9 @@ class LLMServer:
     def completions(self, request: Dict) -> Dict:
         """OpenAI-ish /v1/completions: {"prompt": str|[int], "max_tokens",
         "temperature", "top_k", "top_p", "stop_token_ids",
-        "repetition_penalty", "seed", "request_id"}."""
-        prompt, params, rid = self._parse(request)
-        rid = self._submit(prompt, params, rid)
+        "repetition_penalty", "seed", "request_id", "lora_name"}."""
+        prompt, params, rid, lora_name = self._parse(request)
+        rid = self._submit(prompt, params, rid, lora_name)
         q = self._streams[rid]
         try:
             while True:
@@ -248,8 +335,8 @@ class LLMServer:
     def completions_stream(self, request: Dict):
         """Streaming completions: a generator of OpenAI-style chunk events,
         one per sampled token, then a final event with the whole output."""
-        prompt, params, rid = self._parse(request)
-        rid = self._submit(prompt, params, rid)
+        prompt, params, rid, lora_name = self._parse(request)
+        rid = self._submit(prompt, params, rid, lora_name)
         q = self._streams[rid]
         finished = False
         try:

@@ -141,7 +141,8 @@ def init_params(config: LlamaConfig, generator: torch.Generator,
     }
 
 
-def _to_torch(arr: np.ndarray) -> torch.Tensor:
+def to_torch(arr: np.ndarray) -> torch.Tensor:
+    """A host array as a CPU tensor, sharing its memory where it can."""
     # Writable + C-contiguous (np.asarray of a jax array is read-only);
     # copies only when the input is not already so.
     arr = np.require(arr, requirements=["C", "W"])
@@ -152,6 +153,15 @@ def _to_torch(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a host array; bf16 (which numpy lacks) as its uint16
+    bits."""
+    t = t.detach().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).cpu().numpy().view(np.uint16)
+    return t.cpu().numpy()
+
+
 def params_from_numpy(tree: Dict, config: LlamaConfig,
                       device="cuda") -> Dict:
     """Convert `jax.tree.map(np.asarray, llama.init_params(...))` of the
@@ -160,7 +170,7 @@ def params_from_numpy(tree: Dict, config: LlamaConfig,
     dev = resolve_device(device)
 
     def conv(a):
-        return _to_torch(np.asarray(a)).to(device=dev, dtype=config.dtype)
+        return to_torch(np.asarray(a)).to(device=dev, dtype=config.dtype)
 
     return {"embed": conv(tree["embed"]),
             "layers": {k: conv(tree["layers"][k]) for k in LAYER_KEYS},

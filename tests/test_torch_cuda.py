@@ -16,7 +16,12 @@ decode dispatch never synchronises with the device; a train step
 launches the flash kernels once or twice per layer, as its remat policy
 says; a head-dim-96 engine runs the plain versions on the card, as the
 JAX runner runs its reference there, and attention at head dim 256, where
-the JAX rule runs a Pallas kernel the port lacks, raises.
+the JAX rule runs a Pallas kernel the port lacks, raises. A
+mixed-adapter LoRA step replays its graph as the eager step computes it,
+the split path with adapters gives the unified engine's tokens, a
+replay after `load_adapter` or `update_weights` reads the new values,
+`resize` captures once, and pages gathered off the card scatter back
+byte-exactly.
 """
 
 import numpy as np
@@ -230,6 +235,158 @@ def test_replays_count_kernel_launches(cuda):
             32, temps))
         assert pa.ragged_paged_attention_unified.launches == (5 + i) * L
     assert graphed.step_compiles == 2
+
+
+def _lora_runner_pair(cuda, dtype, n_adapters=3):
+    """_runner_pair's runners, each with a LoRA manager (4 user slots,
+    rank 8, every target) holding the same seeded adapters a0, a1, ..."""
+    from ray_tpu_torch.llm import lora
+
+    config, runners = _runner_pair(cuda, dtype)
+    adapters = [lora.init_adapter(
+        config, f"a{i}", targets=lora.TARGETS, scale=0.5,
+        generator=torch.Generator().manual_seed(30 + i))
+        for i in range(n_adapters)]
+    for r in runners:
+        r.lora = lora.LoRAManager(config, n_slots=4, device=cuda)
+        for a in adapters:
+            r.lora.load_adapter(a)
+    return config, runners, adapters
+
+
+LORA_IDX = np.asarray([0, 1, 2, 3], np.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_graphed_lora_step_equals_eager(cuda, dtype):
+    """A mixed-adapter batch (base, a0, a1, a2) through the bucket's graphs
+    against the eager step: fp32 identical samples, bf16 logits within
+    2e-2; the adapters move the logits (against all-base slots)."""
+    config, (graphed, eager), _ = _lora_runner_pair(cuda, dtype)
+    args = _mixed_inputs(graphed, [4, 1, 16, 3], [60, 33, 16, 50],
+                         [[7, 9, 11], [], [], [2, 4]], 32,
+                         [0.0, 0.8, 0.0, 1.1])
+    g_acc, g_smp = graphed.step_mixed(*args, lora_idx=LORA_IDX)
+    e_acc, e_smp = eager.step_mixed(*args, lora_idx=LORA_IDX)
+    if dtype == torch.float32:
+        assert np.array_equal(g_acc, e_acc) and np.array_equal(g_smp, e_smp)
+    torch.testing.assert_close(graphed.last_logits, eager.last_logits,
+                               rtol=2e-2, atol=2e-2)
+    with_lora = eager.last_logits.clone()
+    eager.step_mixed(*args, lora_idx=np.zeros(4, np.int32))
+    moved = (with_lora - eager.last_logits).abs().amax(dim=-1).view(4, 4)
+    assert (moved[0] == 0).all()      # the base slot adds exact zeros
+    assert (moved[1:] > 1e-3).all()
+    assert graphed.step_compiles == 1
+
+
+def test_replay_reads_new_adapter_and_new_weights(cuda):
+    """A replay after `load_adapter` (a slot's columns rewritten in place)
+    and after `update_weights` (every weight copied in place) reads the
+    new values: its logits equal an eager runner's that holds the same
+    new values, and nothing is captured again."""
+    from ray_tpu_torch.llm import lora
+    from ray_tpu_torch.llm.engine import LLMEngine
+
+    config, (graphed, eager), adapters = _lora_runner_pair(cuda,
+                                                           torch.float32)
+    args = _mixed_inputs(graphed, [1, 1, 1, 1], [20, 21, 22, 23],
+                         [[], [], [], []], 32, [0.0] * 4)
+    graphed.step_mixed(*args, lora_idx=LORA_IDX)
+    before = graphed.last_logits.clone()
+    fresh = lora.init_adapter(config, "a1", targets=lora.TARGETS, scale=0.5,
+                              generator=torch.Generator().manual_seed(99))
+    for r in (graphed, eager):
+        r.lora.load_adapter(fresh)
+    graphed.step_mixed(*args, lora_idx=LORA_IDX)
+    eager.step_mixed(*args, lora_idx=LORA_IDX)
+    torch.testing.assert_close(graphed.last_logits, eager.last_logits,
+                               rtol=1e-5, atol=1e-5)
+    delta = (graphed.last_logits - before).abs().amax(dim=-1).view(4, 4)
+    assert (delta[2] > 1e-3).all() and (delta[[0, 1, 3]] == 0).all()
+    new = {k: v for k, v in graphed.params.items() if k != "layers"}
+    new["layers"] = {k: v * 0.9 for k, v in graphed.params["layers"].items()}
+    for r in (graphed, eager):
+        LLMEngine(r, max_batch_size=4).update_weights(new)
+    graphed.step_mixed(*args, lora_idx=LORA_IDX)
+    eager.step_mixed(*args, lora_idx=LORA_IDX)
+    torch.testing.assert_close(graphed.last_logits, eager.last_logits,
+                               rtol=1e-5, atol=1e-5)
+    assert (graphed.last_logits - before).abs().amax() > 1e-3
+    assert graphed.step_compiles == 1 and len(graphed._graphs) == 1
+
+
+def test_lora_resize_recaptures_once(cuda):
+    """`resize` reallocates the stacks: the next step of a bucket captures
+    once (the old epoch's graphs released), later steps replay, and every
+    loaded adapter's outputs stay the same."""
+    config, (graphed, _), _ = _lora_runner_pair(cuda, torch.float32)
+    args = _mixed_inputs(graphed, [1, 1, 1, 1], [20, 21, 22, 23],
+                         [[], [], [], []], 32, [0.0] * 4)
+    graphed.step_mixed(*args, lora_idx=LORA_IDX)
+    before = graphed.last_logits.clone()
+    assert graphed.step_compiles == 1
+    graphed.lora.resize(7)
+    for _ in range(3):
+        graphed.step_mixed(*args, lora_idx=LORA_IDX)
+        assert graphed.step_compiles == 2 and len(graphed._graphs) == 1
+        torch.testing.assert_close(graphed.last_logits, before, rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_lora_split_path_equals_unified(cuda):
+    """Mixed-adapter requests (base, a0, a1) through the split path (K6 on
+    every runner step, eager) give the graphed unified engine's greedy
+    tokens in fp32, and every pin is released."""
+    from ray_tpu_torch.llm import lora
+    from ray_tpu_torch.llm.sampling import SamplingParams
+    from ray_tpu_torch.llm.serving import LLMConfig, build_engine
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    config = llama.LlamaConfig.tiny(d_model=256, n_heads=4, n_kv_heads=2,
+                                    dtype=torch.float32)
+    adapters = [lora.init_adapter(
+        config, f"a{i}", targets=lora.TARGETS, scale=0.5,
+        generator=torch.Generator().manual_seed(40 + i)) for i in range(2)]
+    prompts = [[1, 2, 3] * 20, [7, 8, 9, 10], [5] * 37]
+    outs = {}
+    for unified in (True, False):
+        engine = build_engine(LLMConfig(
+            model_config=config, block_size=16, num_kv_blocks=64,
+            max_batch_size=4, prefill_chunk=32, device=cuda,
+            lora_adapters=adapters, unified_ticks=unified))
+        pa.ragged_paged_attention.launches = 0
+        for i, (p, name) in enumerate(zip(prompts, (None, "a0", "a1"))):
+            engine.add_request(p, SamplingParams(max_tokens=6),
+                               request_id=f"r{i}", lora_name=name)
+        done = {}
+        while engine.has_unfinished():
+            done.update({o.request_id: o.output_token_ids
+                         for o in engine.step() if o.finished})
+        outs[unified] = [done[f"r{i}"] for i in range(3)]
+        assert engine.stats()["lora_pinned"] == 0
+        assert (pa.ragged_paged_attention.launches > 0) != unified
+    assert outs[True] == outs[False]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_scatter_pages_round_trip_on_card(cuda, dtype):
+    """Pages gathered off the card (bf16 as uint16 bits) scatter into other
+    pages of another runner byte-exactly, in place (the pool tensor is the
+    same object), and equal the pool's own bytes."""
+    _, (a, b) = _runner_pair(cuda, dtype)
+    pool = b.cache["k"].data_ptr()
+    src, dst = [3, 7, 1], [10, 2, 20]
+    k, v = a.gather_pages(src)
+    assert k.shape == (a.config.n_layers, a.config.n_kv_heads, 3, 16, 64)
+    b.scatter_pages(dst, k, v)
+    assert b.cache["k"].data_ptr() == pool
+    for name in ("k", "v"):
+        assert torch.equal(b.cache[name][:, :, dst],
+                           a.cache[name][:, :, src]), name
+    k2, _ = b.gather_pages(dst)
+    assert k2.tobytes() == k.tobytes()
 
 
 def _rect_case(seed, dtype, q_lens, kv_lens, Bq, K=2, H=8, hd=64, ps=16,

@@ -205,9 +205,12 @@ def test_sampling_frequencies_match_filtered_softmax():
 
 
 def test_engine_refuses_unported_features(weights):
-    """What stays refused: prefill-only engines, LoRA and weight updates.
-    The split path, multi-step decode, speculation (unified and split) and
-    repetition penalty run."""
+    """What stays refused: prefill-only engines, the cluster prefix tier
+    and the disaggregated wire (completions_collect, migrate_sessions).
+    The split path, multi-step decode, speculation (unified and split),
+    repetition penalty, LoRA and weight updates run."""
+    from ray_tpu_torch.llm.serving import LLMConfig, LLMServer
+
     _, _, tconfig, tparams = weights
     with pytest.raises(ValueError, match="not ported"):
         _port_engine(tconfig, tparams, prefill_only=True)
@@ -218,11 +221,21 @@ def test_engine_refuses_unported_features(weights):
                {"speculative_ngram": 2, "decode_multi_step": 4}):
         _port_engine(tconfig, tparams, **kw)
     eng = _port_engine(tconfig, tparams)
-    eng.add_request([1, 2], SamplingParams(repetition_penalty=1.2))
     with pytest.raises(ValueError, match="not ported"):
+        eng.attach_prefix_store(cluster_store=object())
+    # LoRA and weight updates are ported: an engine without adapters
+    # says so, and an idle engine takes its own weights back.
+    with pytest.raises(ValueError, match="no LoRA manager"):
         eng.add_request([1, 2], lora_name="a")
-    with pytest.raises(ValueError, match="not ported"):
-        eng.update_weights({})
+    assert eng.update_weights(tparams)["version"] == 1
+    eng.add_request([1, 2], SamplingParams(repetition_penalty=1.2))
+    cfg = LLMConfig(model_config=tconfig, num_kv_blocks=16, block_size=8,
+                    device="cpu", warmup_buckets="off")
+    with LLMServer(cfg, params=tparams) as server:
+        with pytest.raises(ValueError, match="not ported"):
+            server.completions_collect("r")
+        with pytest.raises(ValueError, match="not ported"):
+            server.migrate_sessions([])
 
 
 def test_llm_server_round_trip(weights):

@@ -80,7 +80,8 @@ def test_entry_points_raise_without_cuda():
 
 def test_train_modules_are_covered_and_refuse_a_missing_card():
     names = [name for name, _ in _modules()]
-    assert {"ray_tpu_torch.train.optim", "ray_tpu_torch.train.step"} <= \
+    assert {"ray_tpu_torch.train.optim", "ray_tpu_torch.train.step",
+            "ray_tpu_torch.llm.lora", "ray_tpu_torch.llm.prefix_store"} <= \
         set(names)
     if torch.cuda.is_available():
         pytest.skip("CUDA present: the default device is valid here")
