@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases device,build,kernel,split
     python3 chip_smoke.py --phases device,build,kernel,train
     python3 chip_smoke.py --phases device,build,lora,pages
+    python3 chip_smoke.py --phases device,build,mesh
     python3 chip_smoke.py --phases device --turns parent,.,.,parent
 
 Phases, in order; any failure raises and the exit code is non-zero:
@@ -104,6 +105,36 @@ Phases, in order; any failure raises and the exit code is non-zero:
                flash_fwd launches per step) and an fp32 identity check (2
                layers, batch 2 x 512: loss and every gradient with flash
                attention equal those with the reference).
+ 10. mesh      in-program parallelism (ray_tpu_torch.parallel) on a
+               one-rank NCCL group: (a) fsdp.build_train_step on a mesh of
+               one rank against train/step.py on the same weights (the
+               bench configuration, 3 warm-up steps each, then 3 steps
+               at a time in turns single, mesh, mesh, single, single,
+               mesh, mesh, single; the 15 losses and grad_norms of each
+               path equal within 1e-6 relative, flash launches 2L/L/L
+               per step);
+               (b) the ring's chunk steps and merges over 4 chunks of a
+               16384-token causal sequence (heads 16/8, d 128, bf16),
+               forward and backward with output and LSE cotangents,
+               against whole-sequence flash attention (by norm, 1e-2; 10
+               launches of each flash kernel); (c) the JAX package's
+               default MoEConfig at full width (3.55 B parameters, 1.14 B
+               active; bf16, flash, full remat, batch 2 x 2048) for 2
+               warm-up and 5 timed steps: step ms, tokens/s, MFU, peak
+               memory, dropped_frac (and, at the first and the last
+               weights, each layer's dropped share and its busiest
+               expert's share of the routes), 2L/L/L flash launches per
+               step, the profiled share of the fp32 dispatch and combine
+               einsums;
+               the loss falls; an fp32 identity at 2 layers (loss and its
+               parts on flash equal reference attention, 1e-5); (d) with 2
+               or more cards, a world of up to 4 NCCL ranks trains a
+               2-layer full-width Llama on MeshConfig(fsdp=2, tp=2) (or
+               fsdp=2) against the same steps on one card (losses 1e-5
+               and grad_norms 1e-4 relative; after 2 steps the parameters'
+               movement within 1e-3 by norm and every element within one
+               step's movement, lr); it prints its number of ranks either
+               way.
 The kernel phase also holds the three flash kernels (forward, dQ, dK/dV)
 against their plain versions in bf16 and fp32 at the train shape (4, 2048,
 16/8 heads, 128), with Llama-3-8B heads (32/8), a ragged tail (1000),
@@ -139,7 +170,7 @@ import time
 import zlib
 
 ALL_PHASES = ("device", "build", "kernel", "server", "lora", "pages",
-              "split", "identity", "train")
+              "split", "identity", "train", "mesh")
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12,     # dense bf16 tensor-core rate
             "float32": 67e12}       # fp32 outside the tensor cores
@@ -2034,6 +2065,499 @@ def phase_train(torch):
                             identity=_train_identity(torch))
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- mesh
+
+RING_CHUNKS = 4
+# The one-rank mesh runs the single-card step's arithmetic: its losses and
+# grad_norms equal the single card's up to the order of fp32 sums.
+MESH_TOLERANCE = 1e-6    # relative
+
+
+def _norm_err(got, ref):
+    """||got - ref|| / ||ref|| in fp32."""
+    got, ref = got.float(), ref.float()
+    return ((got - ref).norm() / ref.norm().clamp(min=1e-30)).item()
+
+
+def _reset_flash():
+    from ray_tpu_torch.ops import attention as attn
+
+    for k in FLASH_KERNELS:
+        getattr(attn, k).launches = 0
+
+
+def _steps(torch, step, state, tokens, n, per_step, losses, label):
+    """n steps of `step(state, tokens)` (train/step.py's (state, loss) or
+    fsdp's (state, metrics)), each step's loss or metrics appended to
+    `losses`; host ms per step, each step's flash launches held to
+    `per_step`."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        before = _flash_counts()
+        state, out = step(state, tokens)
+        losses.append(out)
+        got = {k: v - before[k] for k, v in _flash_counts().items()}
+        if got != per_step:
+            raise AssertionError(f"{label}: flash launches per step {got} "
+                                 f"!= {per_step}")
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+class _NormOf:
+    """An optimizer that records the global norm of the gradients it is
+    given (fp32 sums of squares, as fsdp.global_norm takes them), so that
+    train/step.py's step can be held to the mesh step's grad_norm."""
+
+    def __init__(self, torch, opt):
+        self.torch, self.opt, self.norms = torch, opt, []
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, params, grads, state):
+        vn = self.torch.linalg.vector_norm
+        self.norms.append(self.torch.sqrt(sum(
+            vn(g, dtype=self.torch.float32).square() for g in grads)))
+        return self.opt.update(params, grads, state)
+
+
+def _mesh_of_one(torch, mesh):
+    """(a) fsdp.build_train_step on a one-rank mesh against train/step.py
+    on the same weights and batch: the bench configuration, 3 warm-up
+    steps each, then 3 steps at a time in turns single, mesh, mesh,
+    single, single, mesh, mesh, single; the 15 losses and grad_norms of
+    each path held pairwise within MESH_TOLERANCE."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel.fsdp import build_train_step
+    from ray_tpu_torch.train.optim import adamw
+    from ray_tpu_torch.train.step import init_state, make_step
+
+    config = _bench_train_config(torch)
+    L = config.n_layers
+    per_step = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    opt = adamw(1e-4, b1=0.9, b2=0.95, mu_dtype=torch.bfloat16)
+    single_opt = _NormOf(torch, opt)
+    single = init_state(config, single_opt, torch.Generator(
+        device="cuda").manual_seed(SEED))
+    init_fn, make_mesh_step = build_train_step(
+        lambda p, b: llama.loss_fn(p, b, config), opt, mesh,
+        llama.param_logical_axes(config), {"tokens": ("batch", None)})
+    state, specs = init_fn(llama.init_params(config, torch.Generator(
+        device="cuda").manual_seed(SEED)))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    tokens = torch.randint(0, config.vocab_size, (4, config.max_seq + 1),
+                           generator=gen, device="cuda")
+    paths = {"single": [make_step(config, single_opt), single, []],
+             "mesh": [make_mesh_step(specs), state, []]}
+    batch = {"single": tokens, "mesh": {"tokens": tokens}}
+    ms = {"single": [], "mesh": []}
+    _reset_flash()
+    for name in ("single", "mesh"):
+        step, st, losses = paths[name]
+        _steps(torch, step, st, batch[name], 3, per_step, losses, name)
+    for name in ("single", "mesh", "mesh", "single") * 2:
+        step, st, losses = paths[name]
+        ms[name].append(_steps(torch, step, st, batch[name], 3, per_step,
+                               losses, name))
+    launches = _flash_counts()
+    single_l = [float(x) for x in paths["single"][2]]
+    single_n = [float(x) for x in single_opt.norms]
+    mesh_l = [float(m["loss"]) for m in paths["mesh"][2]]
+    mesh_n = [float(m["grad_norm"]) for m in paths["mesh"][2]]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(mesh_l, single_l))
+    worst_n = max(abs(a - b) / abs(b) for a, b in zip(mesh_n, single_n))
+    if len(mesh_n) != len(single_n) or max(worst, worst_n) > \
+            MESH_TOLERANCE or not all(map(math.isfinite, mesh_l + mesh_n)):
+        raise AssertionError(f"mesh (a): losses {mesh_l}, grad_norms "
+                             f"{mesh_n} vs single {single_l}, {single_n}")
+    if not mesh_l[-1] < mesh_l[0]:
+        raise AssertionError(f"mesh (a): loss did not fall: {mesh_l}")
+    tps = 4 * config.max_seq
+    order, seen = [], {"single": 0, "mesh": 0}
+    for name in ("single", "mesh", "mesh", "single") * 2:
+        order.append(f"{name} {ms[name][seen[name]]:.2f}")
+        seen[name] += 1
+    log(f"mesh (a) one-rank mesh vs single card, bench config batch 4 x "
+        f"{config.max_seq}: step ms in turns {', '.join(order)}; losses "
+        f"{mesh_l[0]:.4f} -> {mesh_l[-1]:.4f} (single {single_l[0]:.4f} -> "
+        f"{single_l[-1]:.4f}), grad_norm {mesh_n[0]:.4f} -> {mesh_n[-1]:.4f}"
+        f"; worst relative difference loss {worst:.2e}, grad_norm "
+        f"{worst_n:.2e} (tol {MESH_TOLERANCE}); flash launches {launches} "
+        f"over {2 * len(mesh_l)} steps")
+    return dict(step_ms=ms, losses_single=single_l, losses_mesh=mesh_l,
+                grad_norms_single=single_n, grad_norms_mesh=mesh_n,
+                worst_rel_loss_diff=worst, worst_rel_norm_diff=worst_n,
+                launches=launches,
+                tokens_per_s_mesh=[tps / t * 1e3 for t in ms["mesh"]],
+                tokens_per_s_single=[tps / t * 1e3 for t in ms["single"]])
+
+
+def _flash_share(torch, fn):
+    """Share of fn's device time (torch.profiler) in the flash kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    times = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA]
+    total = sum(t for _, t in times)
+    return sum(t for k, t in times if "flash_" in k) / max(total, 1e-9)
+
+
+def _ring_composition(torch):
+    """(b) the ring's chunk steps and merges (ring_attention_chunks) over
+    RING_CHUNKS chunks of a 16384-token causal sequence at the bench's
+    heads (16/8, d 128, bf16), forward and backward with cotangents on
+    the output and the LSE, against flash attention on the whole
+    sequence; errors by norm (NORM_TOLERANCE), times by CUDA events."""
+    from ray_tpu_torch.ops.attention import flash_attention
+    from ray_tpu_torch.parallel.ring import ring_attention_chunks
+
+    b, s, h, hkv, d = 1, 16384, 16, 8, 128
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+
+    def randn(*shape, dt=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+    q, k, v = (randn(b, s, n, d).requires_grad_(True)
+               for n in (h, hkv, hkv))
+    g_out, g_lse = randn(b, s, h, d), randn(b, h, s, dt=torch.float32)
+
+    def run(fn):
+        out, lse = fn()
+        loss = (out.float() * g_out.float()).sum() + (lse * g_lse).sum()
+        return (out, lse, *torch.autograd.grad(loss, [q, k, v]))
+
+    ring = lambda: ring_attention_chunks(  # noqa: E731
+        q, k, v, RING_CHUNKS, causal=True)
+    whole = lambda: flash_attention(  # noqa: E731
+        q, k, v, causal=True, return_lse=True)
+    _reset_flash()
+    got = run(ring)
+    torch.cuda.synchronize()
+    launches = _flash_counts()
+    # 4 diagonal and 6 past chunks attend; the 6 future ones launch none.
+    n = RING_CHUNKS * (RING_CHUNKS + 1) // 2
+    if launches != {k: n for k in FLASH_KERNELS}:
+        raise AssertionError(f"mesh (b): launches {launches}, want {n} each")
+    ref = run(whole)
+    errs = {name: _norm_err(g, r) for name, g, r in
+            zip(("out", "lse", "dq", "dk", "dv"), got, ref)}
+    bad = {k: e for k, e in errs.items() if not e <= NORM_TOLERANCE[
+        "bfloat16"]}
+    if bad:
+        raise AssertionError(f"mesh (b): ring vs whole by norm {errs}")
+    flash_share = _flash_share(torch, lambda: run(ring))
+    ring_ms = _time_auto(torch, lambda: run(ring), budget_s=1.0, most=10)
+    whole_ms = _time_auto(torch, lambda: run(whole), budget_s=1.0, most=10)
+    fwd_ring = _time_auto(torch, lambda: ring_attention_chunks(
+        q.detach(), k.detach(), v.detach(), RING_CHUNKS), most=10)
+    fwd_whole = _time_auto(torch, lambda: flash_attention(
+        q.detach(), k.detach(), v.detach(), causal=True), most=10)
+    chunk = s // RING_CHUNKS
+    log(f"mesh (b) ring composition, {RING_CHUNKS} chunks of {chunk} (b 1, "
+        f"heads {h}/{hkv}, d {d}, bf16): fwd+bwd "
+        f"{ring_ms:.3f} ms vs whole-sequence flash {whole_ms:.3f} ms; fwd "
+        f"{fwd_ring:.3f} vs {fwd_whole:.3f} ms; errors by norm "
+        + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+        + f" (tol {NORM_TOLERANCE['bfloat16']}); launches {launches}; "
+        f"flash kernels {flash_share:.1%} of the ring's device time")
+    return dict(seq=s, chunks=RING_CHUNKS, fwd_bwd_ms=ring_ms,
+                flash_share=flash_share,
+                whole_fwd_bwd_ms=whole_ms, fwd_ms=fwd_ring,
+                whole_fwd_ms=fwd_whole, norm_errors=errs, launches=launches)
+
+
+def _dispatch_share(torch, prof, slots):
+    """Share of the profiled device time in the MoE dispatch and combine
+    einsums: the fp32 bmm calls (forward, recompute and backward) with an
+    operand dimension of E x C slots."""
+    from torch.autograd import DeviceType
+
+    kernels = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    einsums = sum(getattr(e, "device_time_total", 0)
+                  for e in prof.key_averages(group_by_input_shape=True)
+                  if e.key == "aten::bmm"
+                  and any(slots in shape for shape in e.input_shapes))
+    return einsums / max(kernels, 1e-9), kernels / 1e3
+
+
+def _moe_routes(torch, moe, config, params, tokens):
+    """Per layer of one no-grad forward: (dropped share of the routes,
+    the busiest expert's share of the routes), from moe_block's own
+    dropped_frac and the top-k of its router logits."""
+    rows, block = [], moe.moe_block
+
+    def spy(config, x, router, *weights):
+        out, aux = block(config, x, router, *weights)
+        idx = torch.topk(x.float() @ router, config.top_k, dim=-1).indices
+        load = torch.bincount(idx.flatten(), minlength=config.n_experts)
+        rows.append((float(aux["dropped_frac"]),
+                     float(load.max()) / idx.numel()))
+        return out, aux
+
+    moe.moe_block = spy
+    try:
+        with torch.no_grad():
+            moe.forward(params, tokens["tokens"][:, :-1], config)
+    finally:
+        moe.moe_block = block
+    return rows
+
+
+def _moe_train(torch, mesh):
+    """(c) the JAX package's default MoEConfig at full width (3.55 B
+    parameters, 1.14 B active), bf16, flash, full remat, batch 2 x 2048,
+    the bench's AdamW, through fsdp.build_train_step on the one-rank
+    mesh: 2 warm-up and 5 timed steps; the loss falls; every step
+    launches flash_fwd 2L times, dQ and dK/dV L times; a profiled step;
+    each layer's routes at the first and the last weights."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.models import moe
+    from ray_tpu_torch.parallel.fsdp import build_train_step
+    from ray_tpu_torch.train.optim import adamw
+
+    config = moe.MoEConfig(attention_impl="flash", dtype=torch.bfloat16)
+    L, batch, seq = config.n_layers, 2, config.max_seq
+    per_step = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    opt = adamw(1e-4, b1=0.9, b2=0.95, mu_dtype=torch.bfloat16)
+    init_fn, make_step = build_train_step(
+        lambda p, b: moe.loss_fn(p, b, config), opt, mesh,
+        moe.param_logical_axes(config), {"tokens": ("batch", None)})
+    state, specs = init_fn(moe.init_params(config, torch.Generator(
+        device="cuda").manual_seed(SEED + 11)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = make_step(specs)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    tokens = {"tokens": torch.randint(0, config.vocab_size, (batch, seq + 1),
+                                      generator=gen, device="cuda")}
+    routes = [_moe_routes(torch, moe, config, state["params"], tokens)]
+    torch.cuda.reset_peak_memory_stats()
+    _reset_flash()
+    every = []
+    ms_warm = _steps(torch, step, state, tokens, 2, per_step, every, "moe")
+    step_ms = _steps(torch, step, state, tokens, 5, per_step, every, "moe")
+    launches = _flash_counts()
+    losses = [float(m["loss"]) for m in every]
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"mesh (c): MoE losses {losses}")
+    dropped = [float(m["dropped_frac"]) for m in every]
+    tps = batch * seq / step_ms * 1e3
+    mfu = tps * config.flops_per_token(seq) / PEAK_OPS["bfloat16"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    routes.append(_moe_routes(torch, moe, config, state["params"], tokens))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        step(state, tokens)
+        torch.cuda.synchronize()
+    share, device_ms = _dispatch_share(
+        torch, prof, config.n_experts * config.capacity(seq))
+    n_all, n_active = config.num_params() / 1e9, config.active_params() / 1e9
+    log(f"mesh (c) MoE {n_all:.2f} B ({n_active:.2f} B active), {L} layers, "
+        f"batch {batch} x "
+        f"{seq}, bf16, flash, full remat: {step_ms:.2f} ms/step (5 timed "
+        f"after 2 at {ms_warm:.2f}), {tps:.0f} tokens/s, MFU {mfu:.2%} of "
+        f"989 TFLOP/s, peak {peak:.2f} GiB, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, dropped_frac {dropped[0]:.4f} -> {dropped[-1]:.4f}"
+        f" over the 7 steps, flash launches "
+        f"per step {per_step}; profiled step {device_ms:.2f} ms of device "
+        f"time, fp32 dispatch+combine einsums {share:.1%} of it")
+    for when, rows in zip(("before step 1", "after step 7"), routes):
+        log(f"mesh (c) MoE routes {when}, per layer (dropped share, busiest"
+            f" expert's share of the routes; even {1 / config.n_experts:.3f}"
+            f"): " + ", ".join(f"{d:.3f}/{b:.3f}" for d, b in rows))
+    return dict(step_ms=step_ms, tokens_per_s=tps, mfu=mfu,
+                peak_mem_gib=peak, losses=losses, dropped_frac=dropped,
+                routes_per_layer={"before": routes[0], "after": routes[1]},
+                launches=launches, launches_per_step=per_step,
+                device_ms=device_ms, dispatch_combine_share=share,
+                params=config.num_params(),
+                active_params=config.active_params())
+
+
+def _moe_identity(torch):
+    """(c) fp32 identity: the default MoEConfig at full width with 2
+    layers, batch 2 x 512: the loss and its parts on flash equal those on
+    reference attention with the same weights (relative 1e-5)."""
+    import dataclasses
+
+    from ray_tpu_torch.models import moe
+
+    config = moe.MoEConfig(n_layers=2, max_seq=512, dtype=torch.float32,
+                           attention_impl="flash")
+    params = moe.init_params(config, torch.Generator(
+        device="cuda").manual_seed(SEED + 13))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    batch = {"tokens": torch.randint(0, config.vocab_size, (2, 513),
+                                     generator=gen, device="cuda")}
+    got = {}
+    with torch.no_grad():
+        for impl, launches in (("flash", config.n_layers), ("reference", 0)):
+            _reset_flash()
+            _, m = moe.loss_fn(params, batch, dataclasses.replace(
+                config, attention_impl=impl))
+            got[impl] = {k: float(v) for k, v in m.items()}
+            if _flash_counts()["flash_fwd"] != launches:
+                raise AssertionError(f"mesh (c) identity: {impl} launched "
+                                     f"{_flash_counts()}")
+    worst = max(abs(got["flash"][k] - v) / max(abs(v), 1e-30)
+                for k, v in got["reference"].items())
+    if worst > 1e-5:
+        raise AssertionError(f"mesh (c) identity: {got}")
+    log(f"mesh (c) MoE identity, fp32 full width, 2 layers, batch 2 x 512: "
+        f"total loss flash {got['flash']['total_loss']:.7f} vs reference "
+        f"{got['reference']['total_loss']:.7f}; worst relative difference "
+        f"of the loss and its parts {worst:.2e} (tolerance 1e-5)")
+    return dict(flash=got["flash"], reference=got["reference"], worst=worst)
+
+
+MULTI_CARD_MESH = {4: dict(fsdp=2, tp=2), 2: dict(fsdp=2)}
+
+
+def _sharded_rank(rank, world, mesh_kw):
+    """(d) on card `rank` of an NCCL world: a 2-layer, full-width Llama
+    (the bench's widths, fp32, flash) for 2 steps on the sharded mesh,
+    against the same 2 steps without a mesh on the same card and weights:
+    losses, grad_norms and every gathered parameter, elementwise and as
+    the error of the parameters' movement by norm."""
+    import torch
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel.fsdp import build_train_step
+    from ray_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from ray_tpu_torch.parallel.sharding import gather_tree
+    from ray_tpu_torch.train.optim import adamw, leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    config = _bench_train_config(torch, n_layers=2, dtype=torch.float32)
+    lr = 1e-4
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    tokens = torch.randint(0, config.vocab_size, (4, config.max_seq + 1),
+                           generator=gen, device="cuda")
+
+    def weights():
+        return llama.init_params(config, torch.Generator(
+            device="cuda").manual_seed(SEED + 22))
+
+    params, opt = weights(), adamw(lr)
+    flat = [p.requires_grad_(True) for _, p in leaves(params)]
+    opt_state, ref = opt.init(params), []
+    for _ in range(2):
+        loss, _ = llama.loss_fn(params, {"tokens": tokens}, config)
+        grads = torch.autograd.grad(loss, flat)
+        ref.append((loss.item(), torch.sqrt(sum(
+            g.square().sum() for g in grads)).item()))
+        opt.update(params, grads, opt_state)
+    mesh = build_mesh(MeshConfig(**mesh_kw))
+    init_fn, make_step = build_train_step(
+        lambda p, b: llama.loss_fn(p, b, config), adamw(lr), mesh,
+        llama.param_logical_axes(config), {"tokens": ("batch", None)})
+    state, specs = init_fn(weights())
+    step, got = make_step(specs), []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        state, m = step(state, {"tokens": tokens})
+        got.append((m["loss"].item(), m["grad_norm"].item()))
+    step_ms = (time.perf_counter() - t0) / 2 * 1e3
+    full = gather_tree(state["params"], specs["params"], mesh)
+    diff = max((a - b).abs().max().item() for (_, a), (_, b) in
+               zip(leaves(full), leaves(params)))
+    moved = err = 0.0
+    for (_, a), (_, b), (_, p0) in zip(leaves(full), leaves(params),
+                                       leaves(weights())):
+        moved += (b.detach() - p0).double().square().sum().item()
+        err += (a - b.detach()).double().square().sum().item()
+    return dict(rank=rank, losses=got, ref=ref, param_max_diff=diff,
+                moved_norm=math.sqrt(moved),
+                move_rel_err=math.sqrt(err / max(moved, 1e-300)),
+                step_ms=step_ms, local_params=sum(
+                    p.numel() for _, p in leaves(state["params"])))
+
+
+def _multi_card(torch):
+    """(d) the sharded step across cards, when the machine has two or
+    more; the number of ranks either way."""
+    from ray_tpu_torch.parallel.launch import spawn
+
+    count = torch.cuda.device_count()
+    world = 4 if count >= 4 else 2 if count >= 2 else 1
+    if world == 1:
+        log(f"mesh (d): ranks 1 ({count} card): the multi-card leg needs "
+            "2 or more cards and did not run")
+        return dict(ranks=1, cards=count)
+    mesh_kw = MULTI_CARD_MESH[world]
+    res = spawn(_sharded_rank, world, mesh_kw, device="cuda", timeout=600)
+    lr = 1e-4
+    for r in res:
+        for (loss, norm), (ref_loss, ref_norm) in zip(r["losses"], r["ref"]):
+            if abs(loss - ref_loss) > 1e-5 * abs(ref_loss) or \
+                    abs(norm - ref_norm) > 1e-4 * abs(ref_norm):
+                raise AssertionError(f"mesh (d) rank {r['rank']}: "
+                                     f"{r['losses']} vs {r['ref']}")
+        # A step moves an element by about lr: a rank whose parameters did
+        # not move, or moved the wrong way, fails both checks. Elements
+        # whose gradient is near Adam's eps move by an amount the order of
+        # fp32 sums decides, hence no elementwise limit below lr.
+        if r["param_max_diff"] > lr or r["move_rel_err"] > 1e-3:
+            raise AssertionError(
+                f"mesh (d) rank {r['rank']}: params differ by "
+                f"{r['param_max_diff']} (movement by norm "
+                f"{r['move_rel_err']:.2e} off)")
+    log(f"mesh (d): ranks {world} on {count} cards, MeshConfig({mesh_kw}), "
+        f"2-layer full-width Llama fp32: (loss, grad_norm) per step "
+        f"{res[0]['losses']} vs one card {res[0]['ref']}; parameters after 2"
+        f" steps within {max(r['param_max_diff'] for r in res):.2e} "
+        f"(tol {lr}), their movement ({res[0]['moved_norm']:.4f} by norm) "
+        f"within {max(r['move_rel_err'] for r in res):.2e} by norm (tol "
+        f"1e-3); step {res[0]['step_ms']:.1f} ms; "
+        f"{res[0]['local_params']} parameters a rank")
+    return dict(ranks=world, cards=count, mesh=mesh_kw, results=res)
+
+
+def phase_mesh(torch):
+    import tempfile
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel.launch import init_rank
+    from ray_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+
+    _SHARED.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        # NCCL takes one card a rank: the one-card legs run on a world of 1.
+        init_rank(0, 1, os.path.join(tmp, "store"), "cuda")
+        try:
+            mesh = build_mesh(MeshConfig(), device="cuda")
+            for name, fn in (("mesh_of_one", lambda: _mesh_of_one(torch,
+                                                                   mesh)),
+                             ("ring", lambda: _ring_composition(torch)),
+                             ("moe", lambda: _moe_train(torch, mesh)),
+                             ("moe_identity", lambda: _moe_identity(torch))):
+                out[name] = fn()
+                gc.collect()
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    out["multi_card"] = _multi_card(torch)
+    out["ranks"] = out["multi_card"]["ranks"]
+    RESULTS["mesh"] = out
 
 
 def kernels_line() -> dict:

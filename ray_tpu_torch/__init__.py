@@ -6,7 +6,9 @@ It serves Llama-3 through the unified ragged tick and the split path
 (`ray_tpu_torch.llm`), with ragged paged attention as CUDA kernels
 written for Hopper (`ray_tpu_torch.ops.csrc.paged_attention`), and trains
 a Llama on one card (`ray_tpu_torch.train`) through flash attention's
-forward, dQ and dK/dV kernels (`ray_tpu_torch.ops.csrc.flash_attention`).
+forward, dQ and dK/dV kernels (`ray_tpu_torch.ops.csrc.flash_attention`),
+or a Llama or the MoE model (`ray_tpu_torch.models.moe`) sharded over a
+mesh of ranks with DP/FSDP/TP/SP/EP (`ray_tpu_torch.parallel`).
 """
 
 from ray_tpu_torch.ops import is_cuda_backend, resolve_device

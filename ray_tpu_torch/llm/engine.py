@@ -56,7 +56,7 @@ import torch
 
 from ray_tpu_torch.llm.model_runner import HostCopy, _bucket, token_buckets
 from ray_tpu_torch.llm.sampling import SamplingParams, sample
-from ray_tpu_torch.models.llama import to_torch
+from ray_tpu_torch.ops import to_torch
 
 # Per-process key for the prefix-cache digest chain: unpredictable to
 # clients, so cache addresses can't be forged across tenants.

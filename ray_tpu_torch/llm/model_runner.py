@@ -68,7 +68,7 @@ import torch
 from ray_tpu_torch.llm.lora import slot_mask
 from ray_tpu_torch.models import llama as llama_mod
 from ray_tpu_torch.ops import paged_attention as pa
-from ray_tpu_torch.ops import resolve_device
+from ray_tpu_torch.ops import resolve_device, to_numpy, to_torch
 from ray_tpu_torch.ops.layers import (apply_rope, rms_norm, rope_frequencies,
                                       swiglu)
 
@@ -842,7 +842,7 @@ class ModelRunner:
         bf16). The copy runs on the current stream, after every step
         queued there."""
         ids = self._page_ids(block_ids)
-        return tuple(llama_mod.to_numpy(self.cache[side].index_select(2, ids))
+        return tuple(to_numpy(self.cache[side].index_select(2, ids))
                      for side in ("k", "v"))
 
     def scatter_pages(self, block_ids: Sequence[int], k_pages, v_pages):
@@ -903,7 +903,7 @@ def _device_pages(pages, dtype: torch.dtype, device) -> torch.Tensor:
     """Host or device pages -> a tensor of the pool's dtype on `device`.
     16-bit integer payloads are bf16 bits."""
     if not isinstance(pages, torch.Tensor):
-        pages = llama_mod.to_torch(np.asarray(pages))
+        pages = to_torch(np.asarray(pages))
     if pages.dtype in (torch.int16, torch.uint16):
         pages = pages.view(torch.bfloat16)
     return pages.to(device=device, dtype=dtype)

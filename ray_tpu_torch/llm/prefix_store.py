@@ -35,7 +35,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ray_tpu_torch.models.llama import to_numpy
+from ray_tpu_torch.ops import to_numpy
 
 # Frame header and array-chunk header of the JAX package's raw-frame wire
 # (its collective/cpu_group.py): [u64 body length][u8 frame kind][body];

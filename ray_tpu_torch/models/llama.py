@@ -10,7 +10,9 @@ and `chip_smoke.py` decode against it, and `loss_fn` trains through it.
 The serving path runs through llm/model_runner.py instead. While grad is
 enabled, `backbone` wraps each layer in activation checkpointing
 (`remat`, `remat_policy`); under `torch.no_grad` it runs the layers
-as they are.
+as they are. Under an ambient mesh (`parallel.mesh.use_mesh`) the same
+functions run one rank's shards of a DP/FSDP/TP/SP-sharded model
+(`param_logical_axes`, `parallel.sharding.TRAIN_RULES`).
 """
 
 from __future__ import annotations
@@ -25,10 +27,14 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from ray_tpu_torch.ops import resolve_device
+from ray_tpu_torch.ops import resolve_device, to_torch
 from ray_tpu_torch.ops.attention import FLASH_FWD_OP, attention
 from ray_tpu_torch.ops.layers import (apply_rope, rms_norm, rope_frequencies,
                                       swiglu)
+from ray_tpu_torch.parallel import collectives as col
+from ray_tpu_torch.parallel.mesh import current_mesh, current_rules, use_mesh
+from ray_tpu_torch.parallel.ring import ring_attention, ulysses_attention
+from ray_tpu_torch.parallel.sharding import axes_of, constrain, seq_shard
 
 LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
               "w_up", "w_down")
@@ -54,7 +60,10 @@ class LlamaConfig:
     # forward op's out and LSE, so the backward does not run the forward
     # kernel again (the long-context policy).
     remat_policy: str = "full"     # full | dots | flash
-    attention_impl: str = "auto"   # reference | flash
+    # reference | flash | auto | ring | ulysses; the last two shard the
+    # sequence over the mesh axis `sp_axis` (parallel/ring.py).
+    attention_impl: str = "auto"
+    sp_axis: str = "sp"
 
     @property
     def head_dim(self) -> int:
@@ -141,27 +150,6 @@ def init_params(config: LlamaConfig, generator: torch.Generator,
     }
 
 
-def to_torch(arr: np.ndarray) -> torch.Tensor:
-    """A host array as a CPU tensor, sharing its memory where it can."""
-    # Writable + C-contiguous (np.asarray of a jax array is read-only);
-    # copies only when the input is not already so.
-    arr = np.require(arr, requirements=["C", "W"])
-    if arr.dtype.name == "bfloat16":
-        # ml_dtypes.bfloat16 (what np.asarray of a jax bf16 array gives)
-        # is refused by torch.from_numpy: reinterpret the 16-bit payload.
-        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
-    return torch.from_numpy(arr)
-
-
-def to_numpy(t: torch.Tensor) -> np.ndarray:
-    """A tensor as a host array; bf16 (which numpy lacks) as its uint16
-    bits."""
-    t = t.detach().contiguous()
-    if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).cpu().numpy().view(np.uint16)
-    return t.cpu().numpy()
-
-
 def params_from_numpy(tree: Dict, config: LlamaConfig,
                       device="cuda") -> Dict:
     """Convert `jax.tree.map(np.asarray, llama.init_params(...))` of the
@@ -178,20 +166,113 @@ def params_from_numpy(tree: Dict, config: LlamaConfig,
             "lm_head": conv(tree["lm_head"])}
 
 
-# ---------------------------------------------------------------- forward
+def param_logical_axes(config: Optional[LlamaConfig] = None) -> Dict:
+    """Logical axis names per parameter (see parallel/sharding.py rules)."""
+    return {
+        "embed": ("vocab", "embed"),
+        "layers": {
+            "attn_norm": ("layers", None),
+            "wq": ("layers", "embed", "heads"),
+            "wk": ("layers", "embed", "kv_heads"),
+            "wv": ("layers", "embed", "kv_heads"),
+            "wo": ("layers", "heads", "embed"),
+            "mlp_norm": ("layers", None),
+            "w_gate": ("layers", "embed", "mlp"),
+            "w_up": ("layers", "embed", "mlp"),
+            "w_down": ("layers", "mlp", "embed"),
+        },
+        "final_norm": (None,),
+        "lm_head": ("embed", "vocab"),
+    }
 
-def _layer(config: LlamaConfig, x, p, cos, sin):
-    """One decoder layer over dense attention. x: (b, s, d)."""
+
+# ---------------------------------------------------------------- forward
+#
+# Under a mesh (parallel.mesh.use_mesh) every function below runs on this
+# rank's shards and issues the collectives GSPMD inserts for the JAX
+# package: tokens and activations are (batch, seq) shards, the hidden dim
+# whole; each layer all-gathers its weights' fsdp factor (`constrain`,
+# inside the checkpointed layer, so the recompute gathers again and no
+# policy keeps a gathered weight); heads, mlp and vocab are split over tp
+# between Megatron's f and g (`copy_to`, `reduce_from`). Outside a mesh
+# every collective is absent and the functions are the single-device path.
+
+def per_layer_axes(axes: Dict) -> Dict:
+    """A stacked tree's layer logical axes with the leading "layers" axis
+    dropped (what one layer's `unbind`-ed weights carry)."""
+    return {k: v[1:] for k, v in axes["layers"].items()}
+
+
+# Per-layer layout INSIDE the layer: "embed" gathered so each layer's
+# weights are all-gathered over fsdp right before use (the FSDP recipe:
+# gather weights, compute, discard; gradients reduce-scatter back). tp
+# axes stay.
+_LAYER_GATHER_AXES = {
+    "attn_norm": (None,),
+    "wq": (None, "heads"),
+    "wk": (None, "kv_heads"),
+    "wv": (None, "kv_heads"),
+    "wo": ("heads", None),
+    "mlp_norm": (None,),
+    "w_gate": (None, "mlp"),
+    "w_up": (None, "mlp"),
+    "w_down": ("mlp", None),
+}
+
+
+def gather_layer_params(p: Dict, layer_axes: Dict,
+                        extra_axes: Optional[Dict] = None) -> Dict:
+    """One layer's weights from their stored layout (`layer_axes`) to the
+    layout the layer computes in (fsdp factor gathered)."""
+    axes = dict(_LAYER_GATHER_AXES)
+    axes.update(extra_axes or {})
+    return {k: constrain(v, layer_axes[k], axes[k]) for k, v in p.items()}
+
+
+def _attention_dispatch(config, q, k, v):
+    impl, mesh = config.attention_impl, current_mesh()
+    if impl in ("ring", "ulysses"):
+        if mesh is None:
+            raise RuntimeError(
+                f"attention_impl={impl!r} needs an ambient mesh: wrap the "
+                "step in ray_tpu_torch.parallel.mesh.use_mesh(mesh)")
+        fn = ring_attention if impl == "ring" else ulysses_attention
+        return fn(q, k, v, mesh=mesh, axis=config.sp_axis, causal=True)
+    if col.axes_size(mesh, axes_of("seq")) > 1:
+        raise ValueError("the sequence is sharded over sp: attention_impl "
+                         "must be 'ring' or 'ulysses'")
+    return attention(q, k, v, causal=True, impl=impl)
+
+
+def attention_sublayer(config, x, p, cos, sin):
+    """Pre-norm GQA attention block with residual. Shared by every decoder
+    family in models/ (config needs head_dim/norm_eps and the
+    attention_impl/sp_axis fields _attention_dispatch reads). Under a mesh
+    the projections hold this rank's heads: f before them, g after wo."""
     b, s, _ = x.shape
-    hd, H, K = config.head_dim, config.n_heads, config.n_kv_heads
-    h = rms_norm(x, p["attn_norm"], config.norm_eps)
+    hd, mesh = config.head_dim, current_mesh()
+    H, K = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
+    h = col.copy_to(rms_norm(x, p["attn_norm"], config.norm_eps), mesh,
+                    axes_of("heads"))
     q = apply_rope((h @ p["wq"]).reshape(b, s, H, hd), cos, sin)
     k = apply_rope((h @ p["wk"]).reshape(b, s, K, hd), cos, sin)
     v = (h @ p["wv"]).reshape(b, s, K, hd)
-    attn = attention(q, k, v, causal=True, impl=config.attention_impl)
-    x = x + attn.reshape(b, s, H * hd) @ p["wo"]
-    h = rms_norm(x, p["mlp_norm"], config.norm_eps)
-    return x + swiglu(h @ p["w_gate"], h @ p["w_up"]) @ p["w_down"]
+    attn = _attention_dispatch(config, q, k, v)
+    out = attn.reshape(b, s, H * hd) @ p["wo"]
+    return x + col.reduce_from(out, mesh, axes_of("heads"))
+
+
+_LAYER_AXES = per_layer_axes(param_logical_axes())
+
+
+def _layer(config: LlamaConfig, x, p, cos, sin):
+    """One decoder layer. x: (b, s, d)."""
+    p = gather_layer_params(p, _LAYER_AXES)
+    x = attention_sublayer(config, x, p, cos, sin)
+    mesh, mlp = current_mesh(), axes_of("mlp")
+    h = col.copy_to(rms_norm(x, p["mlp_norm"], config.norm_eps), mesh, mlp)
+    out = swiglu(h @ p["w_gate"], h @ p["w_up"]) @ p["w_down"]
+    return x + col.reduce_from(out, mesh, mlp)
 
 
 def _save_dots(ctx, func, *args, **kwargs):
@@ -209,33 +290,69 @@ def _save_flash(ctx, func, *args, **kwargs):
 _REMAT_POLICIES = {"full": None, "dots": _save_dots, "flash": _save_flash}
 
 
-def _checkpointed(config: LlamaConfig):
-    """The layer function under the config's remat policy."""
-    if config.remat_policy not in _REMAT_POLICIES:
-        raise ValueError(f"remat_policy must be 'full', 'dots' or 'flash', "
-                         f"got {config.remat_policy!r}")
-    policy = _REMAT_POLICIES[config.remat_policy]
-    kw = {} if policy is None else {"context_fn": partial(
-        create_selective_checkpoint_contexts, policy)}
+def _in_mesh(mesh, rules, fn, *args):
+    with use_mesh(mesh, rules):
+        return fn(*args)
 
-    def run(x, p, cos, sin):
-        return checkpoint(_layer, config, x, p, cos, sin,
-                          use_reentrant=False, **kw)
+
+def layer_fn(fn, remat: bool, policy: str = "full"):
+    """`fn(x, p, cos, sin)` as the layer stack runs it: under the ambient
+    mesh of the forward (which its recompute re-enters, so a backward
+    outside `use_mesh` gathers as the forward did), and checkpointed under
+    `policy` when `remat` is set and grad is enabled."""
+    if current_mesh() is not None:
+        fn = partial(_in_mesh, current_mesh(), current_rules(), fn)
+    if not (remat and torch.is_grad_enabled()):
+        return fn
+    if policy not in _REMAT_POLICIES:
+        raise ValueError(f"remat_policy must be 'full', 'dots' or 'flash', "
+                         f"got {policy!r}")
+    kw = {} if _REMAT_POLICIES[policy] is None else {"context_fn": partial(
+        create_selective_checkpoint_contexts, _REMAT_POLICIES[policy])}
+
+    def run(*args):
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
     return run
+
+
+def rope_tables(config, seq: int, device):
+    """cos/sin rows of this rank's positions: [r·seq, (r+1)·seq) for
+    sequence shard r (the tables from 0 outside a mesh)."""
+    cos, sin = rope_frequencies(config.head_dim, config.max_seq,
+                                config.rope_theta, device=device)
+    mesh, seq_axes = current_mesh(), axes_of("seq")
+    if col.axes_size(mesh, seq_axes) > 1:
+        start = col.linear_index(mesh, seq_axes) * seq
+        cos, sin = cos[start:start + seq], sin[start:start + seq]
+    return cos, sin
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor, config) -> torch.Tensor:
+    """Embedding lookup in config.dtype. Under a mesh the table's fsdp
+    factor is gathered first and its rows are split over tp: each rank
+    looks up the ids in its rows (others masked to zero) and g sums."""
+    table = constrain(table, ("vocab", "embed"), ("vocab", None))
+    tokens = tokens.to(table.device)
+    vocab, mesh = axes_of("vocab"), current_mesh()
+    if col.axes_size(mesh, vocab) == 1:
+        return table[tokens].to(config.dtype)
+    rows = table.shape[0]
+    local = tokens - col.linear_index(mesh, vocab) * rows
+    inside = (local >= 0) & (local < rows)
+    x = table[local.clamp(0, rows - 1)] * inside[..., None].to(table.dtype)
+    return col.reduce_from(x, mesh, vocab).to(config.dtype)
 
 
 def backbone(params: Dict, tokens: torch.Tensor,
              config: LlamaConfig) -> torch.Tensor:
     """tokens: (b, s) int -> final-norm hidden states (b, s, d) in
-    config.dtype. Layers run under activation checkpointing only when
-    config.remat is set and grad is enabled."""
-    dev = params["embed"].device
-    cos, sin = rope_frequencies(config.head_dim, config.max_seq,
-                                config.rope_theta, device=dev)
-    x = params["embed"][tokens.to(dev)].to(config.dtype)
-    layer = partial(_layer, config)
-    if config.remat and torch.is_grad_enabled():
-        layer = _checkpointed(config)
+    config.dtype (under a mesh: this rank's (batch, seq) shard of both).
+    Layers run under activation checkpointing only when config.remat is
+    set and grad is enabled."""
+    cos, sin = rope_tables(config, tokens.shape[1], params["embed"].device)
+    x = embed(params["embed"], tokens, config)
+    layer = layer_fn(partial(_layer, config), config.remat,
+                     config.remat_policy)
     # unbind: the backward stacks the L per-layer gradients of a stacked
     # weight once, where indexing would add L full-size gradients.
     stacked = {k: params["layers"][k].unbind(0) for k in LAYER_KEYS}
@@ -244,36 +361,85 @@ def backbone(params: Dict, tokens: torch.Tensor,
     return rms_norm(x, params["final_norm"], config.norm_eps)
 
 
+def logits_of(x: torch.Tensor, lm_head: torch.Tensor) -> torch.Tensor:
+    """(b, s, d) hidden states -> fp32 logits; under a mesh the lm_head's
+    fsdp factor is gathered and the logits are this rank's vocab shard."""
+    lm_head = constrain(lm_head, ("embed", "vocab"), (None, "vocab"))
+    x = col.copy_to(x, current_mesh(), axes_of("vocab"))
+    return (x @ lm_head).float()
+
+
 def forward(params: Dict, tokens: torch.Tensor,
             config: LlamaConfig) -> torch.Tensor:
     """tokens: (b, s) int -> logits (b, s, vocab) float32."""
-    x = backbone(params, tokens, config)
-    return (x @ params["lm_head"]).float()
+    return logits_of(backbone(params, tokens, config), params["lm_head"])
+
+
+def _log_likelihood(logits, targets):
+    """log p(target) per token; under a mesh the vocab-parallel log-softmax
+    (max and sum of exponentials all-reduced over the vocab's axes)."""
+    vocab, mesh = axes_of("vocab"), current_mesh()
+    targets = targets[..., None].long()
+    if col.axes_size(mesh, vocab) == 1:
+        return torch.log_softmax(logits, dim=-1).gather(-1, targets)[..., 0]
+    rows = logits.shape[-1]
+    m = col.all_reduce(logits.detach().amax(dim=-1, keepdim=True), mesh,
+                       vocab, op=torch.distributed.ReduceOp.MAX)
+    sumexp = col.reduce_from(torch.exp(logits - m).sum(dim=-1), mesh, vocab)
+    local = targets - col.linear_index(mesh, vocab) * rows
+    inside = ((local >= 0) & (local < rows))[..., 0]
+    picked = logits.gather(-1, local.clamp(0, rows - 1))[..., 0] * inside
+    return col.reduce_from(picked, mesh, vocab) - m[..., 0] - torch.log(
+        sumexp)
+
+
+def data_axes():
+    """Mesh axes the tokens are spread over (batch and sequence)."""
+    return axes_of("batch") + axes_of("seq")
 
 
 def next_token_ce(logits: torch.Tensor, targets: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean next-token cross entropy; mask (same shape as targets)
-    optional."""
-    logp = torch.log_softmax(logits, dim=-1)
-    ll = logp.gather(-1, targets[..., None].long())[..., 0]
+    optional. Under a mesh: the mean over the global batch (sums
+    all-reduced over the batch and sequence axes, g's identity backward)."""
+    mesh, axes = current_mesh(), data_axes()
+    ll = _log_likelihood(logits, targets)
     if mask is not None:
         mask = mask.float()
-        return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    return -ll.mean()
+        den = col.all_reduce(mask.sum(), mesh, axes)
+        return -col.reduce_from((ll * mask).sum(), mesh, axes) / torch.clamp(
+            den, min=1.0)
+    if mesh is None:
+        return -ll.mean()
+    return -col.reduce_from(ll.sum(), mesh, axes) / (
+        ll.numel() * col.axes_size(mesh, axes))
+
+
+def shift_tokens(batch: Dict, device):
+    """(inputs, targets, mask of the targets or None) of a {"tokens": (b,
+    s+1)} batch, cut to this rank's sequence shard under a mesh."""
+    tokens, mask = batch["tokens"], batch.get("mask")
+    inputs = seq_shard(tokens[:, :-1])
+    targets = seq_shard(tokens[:, 1:]).to(device)
+    if mask is not None:
+        mask = seq_shard(mask[:, 1:]).to(device)
+    return inputs, targets, mask
+
+
+def token_count(targets: torch.Tensor) -> torch.Tensor:
+    """The global number of target tokens (this rank's under no mesh)."""
+    return torch.tensor(float(targets.numel() * col.axes_size(
+        current_mesh(), data_axes())), dtype=torch.float32)
 
 
 def loss_fn(params: Dict, batch: Dict[str, torch.Tensor],
             config: LlamaConfig) -> Tuple[torch.Tensor, Dict]:
     """batch: {"tokens": (b, s+1) int, optional "mask": (b, s+1)} ->
-    (next-token cross entropy, {"loss", "tokens"})."""
-    tokens = batch["tokens"]
-    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    (next-token cross entropy, {"loss", "tokens"}). Under a mesh the
+    batch holds this rank's batch shard with the whole sequence (the JAX
+    step's ("batch", None) layout); the loss is the global mean."""
+    inputs, targets, mask = shift_tokens(batch, params["embed"].device)
     logits = forward(params, inputs, config)
-    mask = batch.get("mask")
-    loss = next_token_ce(logits, targets.to(logits.device),
-                         mask[:, 1:].to(logits.device)
-                         if mask is not None else None)
-    return loss, {"loss": loss,
-                  "tokens": torch.tensor(float(targets.numel()),
-                                         dtype=torch.float32)}
+    loss = next_token_ce(logits, targets, mask)
+    return loss, {"loss": loss, "tokens": token_count(targets)}

@@ -21,7 +21,9 @@ mixed-adapter LoRA step replays its graph as the eager step computes it,
 the split path with adapters gives the unified engine's tokens, a
 replay after `load_adapter` or `update_weights` reads the new values,
 `resize` captures once, and pages gathered off the card scatter back
-byte-exactly.
+byte-exactly. The ring's chunk steps and merges equal whole-sequence
+flash attention, and a train step on a one-rank NCCL mesh equals the
+single-card step.
 """
 
 import numpy as np
@@ -657,3 +659,95 @@ def test_train_step_launches_flash_kernels_per_layer(cuda, policy,
         assert (ta.flash_fwd.launches, ta.flash_bwd_dq.launches,
                 ta.flash_bwd_dkv.launches) == (fwd_per_layer * L, L, L)
     assert losses[-1] < losses[0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_composition_matches_whole_flash(cuda, dtype):
+    """The ring's chunk steps and merges (ring_attention_chunks, 4 chunks
+    of 1024 keys, heads 16/8, d 128) against flash attention on the whole
+    sequence, forward and backward with cotangents on the output and the
+    LSE: fp32 elementwise (1e-5 out and LSE, 1e-4 gradients), bf16 by
+    norm (||got - ref|| / ||ref|| <= 1e-2); 10 forward, dQ and dK/dV
+    launches (4 diagonal and 6 past chunks; future chunks launch none)."""
+    from ray_tpu_torch.ops import attention as ta
+    from ray_tpu_torch.parallel.ring import ring_attention_chunks
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def randn(*shape, dt=dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+    q, k, v = (randn(1, 4096, n, 128).requires_grad_(True)
+               for n in (16, 8, 8))
+    g_out, g_lse = randn(1, 4096, 16, 128), randn(1, 16, 4096,
+                                                  dt=torch.float32)
+
+    def run(fn):
+        out, lse = fn(q, k, v)
+        loss = (out.float() * g_out.float()).sum() + (lse * g_lse).sum()
+        return [out, lse, *torch.autograd.grad(loss, [q, k, v])]
+
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        getattr(ta, name).launches = 0
+    got = run(lambda a, b, c: ring_attention_chunks(a, b, c, 4))
+    assert (ta.flash_fwd.launches, ta.flash_bwd_dq.launches,
+            ta.flash_bwd_dkv.launches) == (10, 10, 10)
+    want = run(lambda a, b, c: ta.flash_attention(a, b, c, causal=True,
+                                                  return_lse=True))
+    for name, g, w in zip(("out", "lse", "dq", "dk", "dv"), got, want):
+        g, w = g.float(), w.float()
+        if dtype == torch.float32:
+            tol = 1e-5 if name in ("out", "lse") else 1e-4
+            torch.testing.assert_close(g, w, rtol=tol, atol=tol, msg=name)
+        else:
+            assert ((g - w).norm() / w.norm()).item() <= 1e-2, name
+
+
+def test_mesh_of_one_step_matches_single_card_step(cuda, tmp_path):
+    """fsdp.build_train_step on a one-rank NCCL mesh against train/step.py
+    on the same weights and batch over 3 steps (bf16, flash, "dots"):
+    losses within 1e-6 relative (the same arithmetic), the same flash
+    launches per step."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops import attention as ta
+    from ray_tpu_torch.parallel.fsdp import build_train_step
+    from ray_tpu_torch.parallel.launch import init_rank
+    from ray_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from ray_tpu_torch.train.optim import adamw
+    from ray_tpu_torch.train.step import init_state, make_step
+
+    config = llama.LlamaConfig.tiny(d_model=512, n_heads=4, n_kv_heads=2,
+                                    max_seq=512, attention_impl="flash",
+                                    remat_policy="dots",
+                                    dtype=torch.bfloat16)
+    opt = adamw(1e-3, b1=0.9, b2=0.95, mu_dtype=torch.bfloat16)
+    tokens = torch.randint(0, config.vocab_size, (2, 513), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(1))
+    single = init_state(config, opt, torch.Generator("cuda").manual_seed(0))
+    step = make_step(config, opt)
+    init_rank(0, 1, str(tmp_path / "store"), "cuda")
+    try:
+        mesh = build_mesh(MeshConfig())
+        init_fn, make_mesh_step = build_train_step(
+            lambda p, b: llama.loss_fn(p, b, config), opt, mesh,
+            llama.param_logical_axes(config), {"tokens": ("batch", None)})
+        state, specs = init_fn(llama.init_params(
+            config, torch.Generator("cuda").manual_seed(0)))
+        mesh_step = make_mesh_step(specs)
+        for _ in range(3):
+            counts = []
+            for run in (lambda: step(single, tokens)[1],
+                        lambda: mesh_step(state, {"tokens": tokens})[1][
+                            "loss"]):
+                ta.flash_fwd.launches = ta.flash_bwd_dq.launches = 0
+                ta.flash_bwd_dkv.launches = 0
+                counts.append((run().item(), ta.flash_fwd.launches,
+                               ta.flash_bwd_dq.launches,
+                               ta.flash_bwd_dkv.launches))
+            (ls, *cs), (lm, *cm) = counts
+            assert cs == cm == [4, 2, 2]
+            assert abs(lm - ls) <= 1e-6 * abs(ls)
+    finally:
+        dist.destroy_process_group()
