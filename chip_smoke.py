@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases device,build,kernel,train
     python3 chip_smoke.py --phases device,build,lora,pages
     python3 chip_smoke.py --phases device,build,mesh
+    python3 chip_smoke.py --phases device,build,checkpoint,tp   # 2-4 cards
     python3 chip_smoke.py --phases device --turns parent,.,.,parent
 
 Phases, in order; any failure raises and the exit code is non-zero:
@@ -135,6 +136,28 @@ Phases, in order; any failure raises and the exit code is non-zero:
                movement within 1e-3 by norm and every element within one
                step's movement, lr); it prints its number of ranks either
                way.
+ 11. checkpoint sharded checkpoints in the ray-tpu-ckpt-v1 format: the
+               bench cell's train state (bf16) after 2 steps saved at
+               world 1 (save_sharded) and world 2 (CheckpointPlane async
+               saves), restored, and one more step: its loss equals the
+               uninterrupted step's bit for bit (save/restore ms, GB/s);
+               a 2-layer full-width Llama-3-8B fp32 server loaded through
+               LLMConfig.params_checkpoint gives the greedy tokens of the
+               server built from memory and of naive llama.forward.
+ 12. tp        tensor-parallel serving, with 2 or more cards (it logs that
+               it did not run on one): fp32 2-layer full-width Llama-3-8B
+               greedy tokens at tp = 4 (or 2) equal one card's on the
+               unified, speculative and split servers; the bf16 Llama-3-8B
+               server at tp = 4 (or 2) serves the server phase's mix (K5
+               launches of every rank >= n_layers x ticks, K6 none,
+               step_compiles unchanged), decode steps of 8 rows in turns
+               with the one-card server, device time per rank and its NCCL
+               share (torch.profiler on every rank); mesh (d)'s state,
+               trained on NCCL ranks and saved sharded, served at tp = 2
+               equals a one-card server loaded from the same directory.
+               A process holds one NCCL world in its lifetime
+               (parallel/launch.py): the mesh checkpoint and bf16 legs run
+               in new processes of this script (`--tp-leg`).
 The kernel phase also holds the three flash kernels (forward, dQ, dK/dV)
 against their plain versions in bf16 and fp32 at the train shape (4, 2048,
 16/8 heads, 128), with Llama-3-8B heads (32/8), a ragged tail (1000),
@@ -163,6 +186,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -170,7 +194,7 @@ import time
 import zlib
 
 ALL_PHASES = ("device", "build", "kernel", "server", "lora", "pages",
-              "split", "identity", "train", "mesh")
+              "split", "identity", "train", "mesh", "checkpoint", "tp")
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12,     # dense bf16 tensor-core rate
             "float32": 67e12}       # fp32 outside the tensor cores
@@ -183,6 +207,13 @@ NORM_TOLERANCE = {"float32": 5e-6, "bfloat16": 1e-2}
 SEED = 20261016
 RESULTS: dict = {}
 _SHARED: dict = {}   # Llama-3-8B weights, made once for server and split
+
+if os.environ.get("CHIP_SMOKE_STACKS_AFTER_S"):
+    # A rank of the tp phase (it imports this file): stacks if it hangs.
+    import faulthandler
+
+    faulthandler.dump_traceback_later(
+        float(os.environ["CHIP_SMOKE_STACKS_AFTER_S"]))
 
 
 def log(msg: str) -> None:
@@ -2426,12 +2457,13 @@ def _moe_identity(torch):
 MULTI_CARD_MESH = {4: dict(fsdp=2, tp=2), 2: dict(fsdp=2)}
 
 
-def _sharded_rank(rank, world, mesh_kw):
+def _sharded_rank(rank, world, mesh_kw, save_dir=None):
     """(d) on card `rank` of an NCCL world: a 2-layer, full-width Llama
     (the bench's widths, fp32, flash) for 2 steps on the sharded mesh,
     against the same 2 steps without a mesh on the same card and weights:
     losses, grad_norms and every gathered parameter, elementwise and as
-    the error of the parameters' movement by norm."""
+    the error of the parameters' movement by norm. With `save_dir`, the
+    trained state is then saved there (parallel/checkpoint.py)."""
     import torch
 
     from ray_tpu_torch.models import llama
@@ -2473,6 +2505,14 @@ def _sharded_rank(rank, world, mesh_kw):
         state, m = step(state, {"tokens": tokens})
         got.append((m["loss"].item(), m["grad_norm"].item()))
     step_ms = (time.perf_counter() - t0) / 2 * 1e3
+    save_ms = None
+    if save_dir is not None:
+        from ray_tpu_torch.parallel.checkpoint import save_state
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_state(state, specs, mesh, save_dir)
+        save_ms = (time.perf_counter() - t0) * 1e3
     full = gather_tree(state["params"], specs["params"], mesh)
     diff = max((a - b).abs().max().item() for (_, a), (_, b) in
                zip(leaves(full), leaves(params)))
@@ -2484,7 +2524,7 @@ def _sharded_rank(rank, world, mesh_kw):
     return dict(rank=rank, losses=got, ref=ref, param_max_diff=diff,
                 moved_norm=math.sqrt(moved),
                 move_rel_err=math.sqrt(err / max(moved, 1e-300)),
-                step_ms=step_ms, local_params=sum(
+                step_ms=step_ms, save_ms=save_ms, local_params=sum(
                     p.numel() for _, p in leaves(state["params"])))
 
 
@@ -2559,6 +2599,426 @@ def phase_mesh(torch):
     out["ranks"] = out["multi_card"]["ranks"]
     RESULTS["mesh"] = out
 
+# ---------------------------------------------------------------- checkpoint
+
+def _disk(path):
+    st = os.statvfs(path)
+    return st.f_bavail * st.f_frsize / 2**30
+
+
+def _restored_state(torch, directory):
+    """train/step.py's state from a manifest-format checkpoint of one: the
+    parameters require grad, the AdamW count is an int again."""
+    from ray_tpu_torch.checkpoint import restore_tree
+    from ray_tpu_torch.train.optim import leaves
+
+    tree = restore_tree(directory, device="cuda")
+    for _, p in leaves(tree["params"]):
+        p.requires_grad_(True)
+    tree["opt"]["count"] = int(tree["opt"]["count"])
+    return tree
+
+
+def _train_checkpoint(torch, tmp):
+    """(a) the bench cell's train state (bf16, AdamW with bf16 mu) after 2
+    steps, saved at world 1 (save_sharded) and at world 2 (two ranks'
+    shards through the CheckpointPlane's async save), then the
+    uninterrupted third step; each checkpoint restored and stepped gives
+    that step's loss bit for bit. Save and restore ms and GB/s."""
+    from ray_tpu_torch.checkpoint import (CheckpointPlane, read_manifest,
+                                          save_sharded)
+    from ray_tpu_torch.train.optim import adamw
+    from ray_tpu_torch.train.step import init_state, make_step
+
+    config = _bench_train_config(torch)
+    opt = adamw(1e-4, b1=0.9, b2=0.95, mu_dtype=torch.bfloat16)
+    state = init_state(config, opt,
+                       torch.Generator(device="cuda").manual_seed(SEED))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    tokens = torch.randint(0, config.vocab_size, (4, config.max_seq + 1),
+                           generator=gen, device="cuda")
+    step = make_step(config, opt)
+    for _ in range(2):
+        state, _ = step(state, tokens)
+    torch.cuda.synchronize()
+    dirs = {1: os.path.join(tmp, "world1"), 2: os.path.join(tmp, "world2")}
+    t0 = time.perf_counter()
+    save_sharded(state, dirs[1], step=2)
+    save1 = (time.perf_counter() - t0) * 1e3
+    plane = CheckpointPlane()
+    t0 = time.perf_counter()
+    pend = [plane.save_async(state, dirs[2], rank=r, world=2, step=2)
+            for r in (1, 0)]
+    stall2 = (time.perf_counter() - t0) * 1e3
+    if not plane.flush(timeout=600) or not pend[1].committed:
+        raise AssertionError(f"checkpoint world 2: {[p.info() for p in pend]}")
+    save2 = (time.perf_counter() - t0) * 1e3
+    plane.close()
+    _, want = step(state, tokens)
+    want = want.item()
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    nbytes = read_manifest(dirs[1])["nbytes"]
+    out = dict(bytes=nbytes, save_ms={1: save1, 2: save2},
+               snapshot_stall_ms_world2=stall2,
+               snapshot_ms_world2=[p.snapshot_ms for p in pend],
+               persist_ms_world2=[p.persist_ms for p in pend],
+               restore_ms={}, loss_next=want)
+    for world, d in dirs.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored = _restored_state(torch, d)
+        torch.cuda.synchronize()
+        out["restore_ms"][world] = (time.perf_counter() - t0) * 1e3
+        _, got = step(restored, tokens)
+        got = got.item()
+        if got != want:
+            raise AssertionError(f"checkpoint world {world}: next loss "
+                                 f"{got!r} != uninterrupted {want!r}")
+        del restored
+        gc.collect()
+        torch.cuda.empty_cache()
+    gb = nbytes / 1e9
+    log(f"checkpoint (a) bench train state ({gb:.3f} GB: params, AdamW mu "
+        f"and nu, bf16) after 2 steps: save world 1 {save1:.0f} ms "
+        f"({gb / save1 * 1e3:.2f} GB/s), world 2 through the plane "
+        f"{save2:.0f} ms ({gb / save2 * 1e3:.2f} GB/s; the caller stalled "
+        f"{stall2:.0f} ms for both snapshots); restore world 1 "
+        f"{out['restore_ms'][1]:.0f} ms ({gb / out['restore_ms'][1] * 1e3:.2f}"
+        f" GB/s), world 2 {out['restore_ms'][2]:.0f} ms; the next step's "
+        f"loss {want!r} equal bit for bit after both")
+    return out
+
+
+def _serve_checkpoint(torch, tmp):
+    """(a) a 2-layer full-width Llama-3-8B in fp32, saved with
+    Checkpoint.save_pytree and served through LLMConfig.params_checkpoint:
+    its greedy tokens equal the same server built from memory and naive
+    llama.forward (the identity phase's yardstick)."""
+    from ray_tpu_torch.llm.sampling import SamplingParams
+    from ray_tpu_torch.llm.serving import LLMConfig, build_engine
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.train.checkpoint import Checkpoint
+
+    config = llama.LlamaConfig.llama3_8b(n_layers=2, dtype=torch.float32)
+    params = llama.init_params(config, torch.Generator(
+        device="cuda").manual_seed(SEED + 1))
+    d = os.path.join(tmp, "params")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Checkpoint.save_pytree(params, d)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    prompts = _prompts([37, 150, 260], config.vocab_size, SEED + 1)
+    n_new = 8
+    naive = [_naive(torch, llama, params, config, p, n_new,
+                    lambda lg, _: torch.argmax(lg)) for p in prompts]
+    cfg = dict(model_config=config, block_size=16, num_kv_blocks=256,
+               max_batch_size=8, prefill_chunk=128, device="cuda",
+               warmup_buckets="light")
+    got = {}
+    for label, kw in (("memory", dict(params=params)), ("checkpoint", {})):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine = build_engine(LLMConfig(**dict(
+            cfg, params_checkpoint=d if label == "checkpoint" else None)),
+            **kw)
+        built = (time.perf_counter() - t0) * 1e3
+        got[label] = [o.output_token_ids for o in engine.generate(
+            prompts, SamplingParams(max_tokens=n_new))]
+        got[label + "_build_ms"] = built
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    if not got["checkpoint"] == got["memory"] == naive:
+        raise AssertionError(f"checkpoint (a) serving: {got} vs naive "
+                             f"{naive}")
+    nbytes = sum(p.numel() * 4 for p in params["layers"].values()) + sum(
+        params[k].numel() * 4 for k in ("embed", "final_norm", "lm_head"))
+    log(f"checkpoint (a) 2-layer full-width Llama-3-8B fp32 ({nbytes / 1e9:.3f}"
+        f" GB) saved in {save_ms:.0f} ms; the server loaded through "
+        f"params_checkpoint (built + warmed in "
+        f"{got['checkpoint_build_ms']:.0f} ms, from memory "
+        f"{got['memory_build_ms']:.0f} ms) gives the greedy tokens of the "
+        f"server built from memory and of naive forward for "
+        f"{len(prompts)} prompts x {n_new} tokens")
+    return dict(bytes=nbytes, save_ms=save_ms,
+                build_ms={k: got[k + "_build_ms"]
+                          for k in ("memory", "checkpoint")},
+                tokens_equal=True)
+
+
+def phase_checkpoint(torch):
+    import tempfile
+
+    _SHARED.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        log(f"checkpoint: writing under {tmp} ({_disk(tmp):.0f} GiB free)")
+        out = dict(train=_train_checkpoint(torch, tmp))
+        for d in ("world1", "world2"):
+            shutil.rmtree(os.path.join(tmp, d))
+        out["serve"] = _serve_checkpoint(torch, tmp)
+    RESULTS["checkpoint"] = out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- tp
+
+TP_PROMPTS = (37, 150, 260)
+
+
+def _greedy(engine, prompts, n_new):
+    from ray_tpu_torch.llm.sampling import SamplingParams
+
+    return [o.output_token_ids for o in engine.generate(
+        prompts, SamplingParams(max_tokens=n_new))]
+
+
+def _engines_on(engine, paths):
+    """An engine per path of `paths` ({label: engine options}) over
+    `engine`'s runner (one runner, so one world at tp), with the smoke's
+    serving options; used one at a time."""
+    from ray_tpu_torch.llm.engine import LLMEngine
+
+    return {label: LLMEngine(engine.runner, max_batch_size=8,
+                             prefill_chunk=128, **kw)
+            for label, kw in paths.items()}
+
+
+TP_PATHS = {"unified": {}, "speculative": dict(speculative_ngram=4),
+            "split": dict(unified_ticks=False)}
+
+
+def _close_world(close, tp, label):
+    """Call `close` (a runner's or a server's, which stops its tp world),
+    then check that no rank process and no process group is left; logs how
+    long the close took."""
+    import multiprocessing
+
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    close()
+    left = multiprocessing.active_children()
+    if dist.is_initialized() or left:
+        raise AssertionError(f"{label}: after close, process group "
+                             f"{dist.is_initialized()}, processes {left}")
+    if tp > 1:
+        log(f"{label}: world of {tp} ranks closed in "
+            f"{time.perf_counter() - t0:.1f} s, no process left")
+
+
+def _tp_identity(torch, tp):
+    """(b) fp32, full width, 2 layers: greedy tokens of the tp server
+    (unified graphed, unified speculative, split; one runner) equal the
+    one-card server's on the same seeded weights; K5 and K6 launches of
+    every rank on each path. The one-card server runs first, and each tp
+    path's tokens are compared (and logged) as soon as it has run, before
+    its world closes."""
+    from ray_tpu_torch.llm.serving import build_engine
+    from ray_tpu_torch.models import llama
+
+    config = llama.LlamaConfig.llama3_8b(n_layers=2, dtype=torch.float32)
+    prompts = _prompts(TP_PROMPTS, config.vocab_size, SEED + 1)
+    n_new, got, out = 8, {}, {}
+    for n in (1, tp):
+        t0 = time.perf_counter()
+        base = build_engine(_engine_config(
+            config, tensor_parallel=n, seed=SEED + 1, num_kv_blocks=256,
+            warmup_buckets="light"))
+        log(f"tp (b) identity: tp={n} engine built in "
+            f"{time.perf_counter() - t0:.1f} s")
+        try:
+            for label, engine in _engines_on(base, TP_PATHS).items():
+                base.runner.rank_launches(reset=True)
+                got[(n, label)] = _greedy(engine, prompts, n_new)
+                launches = base.runner.rank_launches(reset=True)
+                out[f"{label}_{n}_launches"] = launches
+                same = got[(n, label)] == got[(1, label)]
+                log(f"tp (b) identity: tp={n} {label}: [K5, K6] per rank "
+                    f"{launches}" + (f"; tokens {'==' if same else '!='} "
+                                     f"one card's" if n > 1 else ""))
+                if not same:
+                    raise AssertionError(f"tp identity {label}: tp={n} "
+                                         f"{got[(n, label)]} != one card "
+                                         f"{got[(1, label)]}")
+                k = 1 if label == "split" else 0
+                if any(r[k] == 0 or r[1 - k] for r in launches):
+                    raise AssertionError(f"tp identity {label} at {n}: "
+                                         f"[K5, K6] per rank {launches}")
+        finally:
+            _close_world(base.runner.close, n, f"tp (b) identity: tp={n}")
+        del base
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"tp (b) identity, fp32 full width, 2 layers: greedy tokens at "
+        f"tp={tp} == one card on the unified, speculative and split "
+        f"servers ({len(prompts)} prompts x {n_new})")
+    return out
+
+
+def _tp_serving(torch, tp):
+    """(b) Llama-3-8B at full width, bf16, seeded weights drawn on every
+    rank: the server phase's five-request mix on the tp server (tok/s,
+    TTFT, ITL; K5 launches of every rank at least n_layers x ticks,
+    step_compiles unchanged after warmup); decode steps of 8 rows, host
+    wall in turns with a one-card engine on the same weights, device time
+    of every rank and its NCCL share (torch.profiler on each rank)."""
+    from ray_tpu_torch.llm.serving import LLMServer, build_engine
+    from ray_tpu_torch.llm.sampling import SamplingParams
+    from ray_tpu_torch.models import llama
+
+    config = llama.LlamaConfig.llama3_8b(dtype=torch.bfloat16)
+    one = build_engine(_engine_config(config, seed=SEED,
+                                      warmup_buckets="light"))
+    t0 = time.perf_counter()
+    server = LLMServer(_engine_config(config, tensor_parallel=tp, seed=SEED))
+    build_s = time.perf_counter() - t0
+    log(f"tp={tp}: Llama-3-8B bf16 server built + warmed in {build_s:.1f} s")
+    runner = server.engine.runner
+    try:
+        runner.rank_launches(reset=True)
+        _, mix = _server_run(torch, server, _mix_requests(config, f"tp{tp}"),
+                             config, f"tp={tp}")
+        per_rank = runner.rank_launches(reset=True)
+        if any(k5 < config.n_layers * mix["ticks"] or k6
+               for k5, k6 in per_rank):
+            raise AssertionError(f"tp={tp}: [K5, K6] per rank {per_rank}, "
+                                 f"{mix['ticks']} ticks")
+        server._stop.set()
+        server._loop.join(10)
+        engine = server.engine
+        walls = _decode_walls(torch, {f"tp{tp}": engine, "one": one}, config)
+        for i, p in enumerate(_prompts([64] * 8, config.vocab_size,
+                                       SEED + 2)):
+            engine.add_request(p, SamplingParams(max_tokens=40),
+                               request_id=f"tp-profile-{i}")
+        while engine.waiting or engine.prefilling:
+            engine.step()
+        n_ticks = 12
+        runner.rank_profile(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_ticks):
+            engine.step()
+        torch.cuda.synchronize()
+        tick_ms = (time.perf_counter() - t0) / n_ticks * 1e3
+        prof = runner.rank_profile(False)
+        while engine.has_unfinished():
+            engine.step()
+    finally:
+        _close_world(server.close, tp, f"tp={tp} server")
+    device_ms = [t / 1e3 / n_ticks for t, _ in prof]
+    nccl = [n / max(t, 1e-9) for t, n in prof]
+    out = dict(mix, tp=tp, build_s=build_s, launches_per_rank=per_rank,
+               decode_walls_ms=walls, profiled_tick_ms=tick_ms,
+               device_ms_per_rank=device_ms, nccl_share_per_rank=nccl,
+               weight_bound_ms_per_rank=16.06e9 / tp / HBM_BYTES_PER_S * 1e3)
+    log(f"tp={tp}: launches [K5, K6] per rank {per_rank}; decode step of 8 "
+        f"rows under the profiler {tick_ms:.2f} ms host wall, device time "
+        f"per rank {[round(x, 3) for x in device_ms]} ms, NCCL kernels "
+        f"{[f'{x:.1%}' for x in nccl]} of it (weight-read bound "
+        f"{out['weight_bound_ms_per_rank']:.2f} ms a rank)")
+    return out
+
+
+def _tp_from_mesh_checkpoint(torch, count):
+    """(b) the mesh (d) cell's 2-layer full-width Llama (the bench's widths,
+    fp32) trained 2 steps on up to 4 NCCL ranks and saved sharded
+    (parallel/checkpoint.py), then served at tp=2 from that directory:
+    greedy tokens equal a one-card server loaded from the same
+    directory."""
+    import tempfile
+
+    from ray_tpu_torch.checkpoint import read_manifest
+    from ray_tpu_torch.llm.serving import build_engine
+    from ray_tpu_torch.parallel.launch import spawn
+
+    world = 4 if count >= 4 else 2
+    config = _bench_train_config(torch, n_layers=2, dtype=torch.float32,
+                                 attention_impl="reference")
+    prompts = _prompts(TP_PROMPTS, config.vocab_size, SEED + 6)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as d:
+        res = spawn(_sharded_rank, world, MULTI_CARD_MESH[world], d,
+                    device="cuda", timeout=600)
+        manifest = read_manifest(d)
+        got = {}
+        for n in (1, 2):
+            engine = build_engine(_engine_config(
+                config, tensor_parallel=n, params_checkpoint=d, num_kv_blocks=256,
+                warmup_buckets="light"))
+            try:
+                got[n] = _greedy(engine, prompts, 8)
+                if n == 2:
+                    log(f"tp (b) mesh checkpoint: tokens at tp=2 "
+                        f"{'==' if got[2] == got[1] else '!='} one card's")
+                    if got[2] != got[1]:
+                        raise AssertionError(
+                            f"tp from the mesh checkpoint: tp=2 {got[2]} "
+                            f"!= one card {got[1]}")
+            finally:
+                _close_world(engine.runner.close, n,
+                             f"tp (b) mesh checkpoint: tp={n}")
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+    save_ms = max(r["save_ms"] for r in res)
+    log(f"tp (b) mesh checkpoint: {world} NCCL ranks on "
+        f"MeshConfig({MULTI_CARD_MESH[world]}) trained 2 steps and saved "
+        f"{manifest['nbytes'] / 1e9:.3f} GB in {world} shards "
+        f"({save_ms:.0f} ms); served at tp=2 from it: greedy tokens == a "
+        f"one-card server loaded from the same directory "
+        f"({len(prompts)} prompts x 8)")
+    return dict(ranks=world, mesh=MULTI_CARD_MESH[world], save_ms=save_ms,
+                bytes=manifest["nbytes"], tokens_equal=True)
+
+
+def _tp_leg(name, *args):
+    """`name(torch, *args)`, a leg of the tp phase that starts a
+    tensor-parallel world, run in a new process of this script; returns
+    its result (JSON). A process holds one NCCL world in its lifetime
+    (parallel/launch.py)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as d:
+        out = os.path.join(d, "result.json")
+        subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--phases", "device", "--tp-leg",
+                        json.dumps([name, list(args), out])],
+                       check=True, timeout=900)
+        with open(out) as f:
+            return json.load(f)
+
+
+def phase_tp(torch):
+    _SHARED.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    count = torch.cuda.device_count()
+    if count < 2:
+        log(f"tp: ranks 1 ({count} card): tensor-parallel serving needs 2 "
+            "or more cards and did not run")
+        RESULTS["tp"] = dict(ranks=1, cards=count)
+        return
+    import faulthandler
+
+    # A rank that hangs prints every thread's stack (its children too:
+    # they import this file) instead of dying silently at the time limit.
+    os.environ["CHIP_SMOKE_STACKS_AFTER_S"] = "300"
+    faulthandler.dump_traceback_later(600)
+    tp = 4 if count >= 4 else 2
+    out = dict(cards=count, sizes=[tp])
+    # This process's one world; the others each in a process of their own.
+    out["identity"] = _tp_identity(torch, tp)
+    out["mesh_checkpoint"] = _tp_leg("_tp_from_mesh_checkpoint", count)
+    out["serving"] = {tp: _tp_leg("_tp_serving", tp)}
+    out["ranks"] = tp
+    faulthandler.cancel_dump_traceback_later()
+    RESULTS["tp"] = out
+
 
 def kernels_line() -> dict:
     """The machine-readable kernel summary, one entry per kernel: headline
@@ -2568,14 +3028,21 @@ def kernels_line() -> dict:
     over all its cases. `launches` is the count of the run that drives the
     kernel's path (server phase for K5, split phase for K6, the bench
     train run for the flash kernels; counts reset to 0 just before each
-    run), null when that phase did not run. `ms` is eager, host included;
+    run), null when that phase did not run; `launches_tp_per_rank` (K5,
+    K6) each rank's count on the tp phase's largest world (the mix for K5,
+    the split identity run for K6). `ms` is eager, host included;
     `graph_ms` (K5/K6) the device time alone. `cuda_kernel` names the
     `__global__` functions the bf16 case launches, as profiles show them."""
     rows = RESULTS.get("kernel_cases", [])
     train = RESULTS.get("train", {}).get("bench", {}).get("launches", {})
 
+    tp = RESULTS.get("tp", {})
+    tp_top = tp.get("serving", {}).get(max(tp.get("sizes") or [0]), {})
+    tp_split = tp.get("identity", {}).get(
+        f"split_{max(tp.get('sizes') or [0])}_launches")
+
     def entry(kernel, name, cuda_kernel, source, replaces, head_case,
-              launches):
+              launches, launches_tp=None):
         mine = [r for r in rows if r["kernel"] == kernel]
         head = next((r for r in mine if r["case"] == head_case
                      and r["dtype"] == "bfloat16"), {})
@@ -2589,7 +3056,8 @@ def kernels_line() -> dict:
             "plain_ms": head.get("plain_ms"),
             "bound_ms": head.get("bound_ms"),
             "bound_by": head.get("bound_by"),
-            "library_ms": head.get("library_ms")}
+            "library_ms": head.get("library_ms"),
+            "launches_tp_per_rank": launches_tp}
 
     attn = "ray_tpu/ops/attention.py"
     return {"kernels": [
@@ -2598,13 +3066,15 @@ def kernels_line() -> dict:
               "rua_kernel",
               "paged_attention.cu",
               "ray_tpu/ops/paged_attention.py:177", "tick_136",
-              RESULTS.get("server", {}).get("k5_launches")),
+              RESULTS.get("server", {}).get("k5_launches"),
+              [r[0] for r in tp_top.get("launches_per_rank", [])] or None),
         entry("K6", "ragged_paged_attention",
               "rpa_tile_kernel (+ rpa_merge_kernel when split); fp32: "
               "rpa_kernel",
               "paged_attention.cu",
               "ray_tpu/ops/paged_attention.py:69", "split_decode",
-              RESULTS.get("split", {}).get("k6_launches")),
+              RESULTS.get("split", {}).get("k6_launches"),
+              [r[1] for r in tp_split] if tp_split else None),
         entry("flash_fwd", "flash_fwd", "flash_fwd_wgmma_kernel",
               "flash_attention.cu",
               f"{attn}:520 (K1), {attn}:553 (K2)", "train",
@@ -2629,7 +3099,12 @@ def main(argv=None) -> int:
                     + ", ".join(_turn_label(*c) for c in TURN_CASES)
                     + " in this order")
     ap.add_argument("--turn-in", help=argparse.SUPPRESS)
+    ap.add_argument("--tp-leg", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    import faulthandler
+
+    # A crash (SIGSEGV, SIGABRT) prints every thread's Python stack.
+    faulthandler.enable(all_threads=True)
     if args.turn_in:
         sys.path.insert(0, os.path.abspath(args.turn_in))
     phases = [p for p in args.phases.split(",") if p]
@@ -2658,6 +3133,11 @@ def main(argv=None) -> int:
         log(f"phase {name}: ok in {time.perf_counter() - t0:.1f} s")
     if args.turn_in:
         _turn_times(torch)
+        return 0
+    if args.tp_leg:
+        name, leg_args, out = json.loads(args.tp_leg)
+        with open(out, "w") as f:
+            json.dump(globals()[name](torch, *leg_args), f)
         return 0
     if args.turns:
         run_turns(args.turns.split(","))

@@ -99,10 +99,11 @@ def prefix_digest_chain(prompt: Sequence[int], block_size: int, *,
     return out
 
 
-def _leaf_pairs(old, new, path: str = "") -> List[tuple]:
-    """(name, engine tensor, payload leaf as a tensor) over two parameter
-    dicts of one structure; WeightSyncError where the structures
+def _leaf_pairs(old, new, keys: tuple = ()) -> List[tuple]:
+    """(name, keys, engine tensor, payload leaf as a tensor) over two
+    parameter dicts of one structure; WeightSyncError where the structures
     differ."""
+    path = "".join(f"['{k}']" for k in keys)
     if isinstance(old, dict):
         if not isinstance(new, dict) or set(new) != set(old):
             got = sorted(new) if isinstance(new, dict) else type(new).__name__
@@ -110,13 +111,13 @@ def _leaf_pairs(old, new, path: str = "") -> List[tuple]:
                 f"pytree structure mismatch at {path or 'the root'}: engine "
                 f"has {sorted(old)}, payload has {got}")
         return [pair for k in sorted(old)
-                for pair in _leaf_pairs(old[k], new[k], f"{path}['{k}']")]
+                for pair in _leaf_pairs(old[k], new[k], keys + (k,))]
     if isinstance(new, np.ndarray):
         new = to_torch(new)
     if not isinstance(new, torch.Tensor):
         raise WeightSyncError(f"pytree structure mismatch at {path}: "
                               f"payload leaf is {type(new).__name__}")
-    return [(path, old, new)]
+    return [(path, keys, old, new)]
 
 
 @dataclasses.dataclass
@@ -605,12 +606,14 @@ class LLMEngine:
                        force: bool = False) -> Dict:
         """Hot-swap the model weights in place (RLHF weight sync).
 
-        Validates `params` (the port's parameter dict; tensors or numpy
-        arrays) against the loaded model first, structure, per-leaf shape
-        and dtype, and raises `WeightSyncError` on any mismatch before
-        touching anything. Then copies every leaf into the runner's
-        existing tensor (`copy_`): a captured graph holds those tensors,
-        so it replays the new weights with no recapture. The whole prefix
+        Validates `params` (the port's parameter dict of global leaves;
+        tensors or numpy arrays) against the loaded model first,
+        structure, per-leaf shape and dtype, and raises `WeightSyncError`
+        on any mismatch before touching anything. Then copies every leaf
+        into the runner's existing tensor (`copy_`; under tensor
+        parallelism each leaf goes to every rank over the device group and
+        each copies its shard): a captured graph holds those tensors, so
+        it replays the new weights with no recapture. The whole prefix
         cache and the host tier are invalidated (their KV was computed
         under the old weights) and `weights_version` moves on.
 
@@ -620,8 +623,8 @@ class LLMEngine:
             raise WeightSyncError(
                 "engine has unfinished requests; drain rollouts before "
                 "swapping weights (or pass force=True)")
-        pairs = _leaf_pairs(self.runner.params, params)
-        for name, old, new in pairs:
+        pairs = _leaf_pairs(self.runner.params_meta, params)
+        for name, _, old, new in pairs:
             if old.shape != new.shape:
                 raise WeightSyncError(
                     f"shape mismatch at {name}: engine {tuple(old.shape)}, "
@@ -630,9 +633,8 @@ class LLMEngine:
                 raise WeightSyncError(
                     f"dtype mismatch at {name}: engine {old.dtype}, "
                     f"payload {new.dtype}")
-        with torch.no_grad():
-            for _, old, new in pairs:
-                old.copy_(new)
+        for _, keys, _, new in pairs:
+            self.runner.assign_param(keys, new)
         invalidated = self.block_manager.invalidate_prefix_cache()
         self.weights_version = (version if version is not None
                                 else self.weights_version + 1)

@@ -27,6 +27,15 @@ target's stacks in JAX's layout, (L, n_slots, d_in, r) and
 A captured CUDA graph holds the stacks' addresses: `load_adapter` writes a
 slot in place and never rebinds a stack; only `resize` reallocates, and it
 bumps `epoch`, which the runner's graph key reads.
+
+Under tensor parallelism (`tp=(rank, size)`) each rank's stacks hold its
+part of every adapter, as its weights are split: a column-parallel target
+(wq, wk, wv, w_gate, w_up) keeps A whole and takes its rank's columns of
+B; a row-parallel one (wo, w_down) takes its rank's rows of A and keeps B
+whole, so its delta is a partial sum that the row product's all-reduce
+adds up with no collective of its own. The slot table lives on rank 0:
+there `fanout` sends each slot write and reallocation to the other ranks,
+which hold the stacks only.
 """
 
 from __future__ import annotations
@@ -48,16 +57,24 @@ INPUT_GROUPS = (("wq", "wk", "wv"), ("wo",), ("w_gate", "w_up"),
                 ("w_down",))
 
 
-def target_dims(config) -> Dict[str, Tuple[int, int]]:
+# Row-parallel targets under tensor parallelism (their input is split).
+ROW_TARGETS = ("wo", "w_down")
+
+
+def target_dims(config, tp: int = 1) -> Dict[str, Tuple[int, int]]:
+    """(d_in, d_out) per target on one rank of `tp`: the split dim (the
+    output of a column-parallel target, the input of a row-parallel one)
+    divided by tp."""
     d, f, hd = config.d_model, config.d_ff, config.head_dim
+    q, kv = config.n_heads * hd // tp, config.n_kv_heads * hd // tp
     return {
-        "wq": (d, config.n_heads * hd),
-        "wk": (d, config.n_kv_heads * hd),
-        "wv": (d, config.n_kv_heads * hd),
-        "wo": (config.n_heads * hd, d),
-        "w_gate": (d, f),
-        "w_up": (d, f),
-        "w_down": (f, d),
+        "wq": (d, q),
+        "wk": (d, kv),
+        "wv": (d, kv),
+        "wo": (q, d),
+        "w_gate": (d, f // tp),
+        "w_up": (d, f // tp),
+        "w_down": (f // tp, d),
     }
 
 
@@ -111,8 +128,12 @@ class LoRAManager:
 
     def __init__(self, config, n_slots: int = 8, rank: int = 8,
                  targets: Sequence[str] = TARGETS, dtype=None,
-                 device="cuda"):
+                 device="cuda", tp: Tuple[int, int] = (0, 1)):
         self.config = config
+        self.tp = tuple(tp)
+        # Rank 0 of a tensor-parallel world: fanout(path, *args) runs
+        # `self.<path>(*args)` on the other ranks (set by the runner).
+        self.fanout = None
         self.n_slots = n_slots + 1          # +1 for the base slot
         self.rank = rank
         self.targets = tuple(t for t in TARGETS if t in targets)
@@ -145,7 +166,7 @@ class LoRAManager:
         """Fresh zero stacks for n_slots slots: per input group one A
         (L, d_in, G * n_slots * r) holding its G targets side by side; per
         target one B (L, n_slots * r, d_out)."""
-        dims = target_dims(self.config)
+        dims = target_dims(self.config, self.tp[1])
         L, N = self.config.n_layers, n_slots * self.rank
         self.groups: List[Tuple[str, ...]] = []
         self.a_group: Dict[Tuple[str, ...], torch.Tensor] = {}
@@ -262,9 +283,19 @@ class LoRAManager:
         self._slots[adapter.name] = slot
         self._tick += 1
         self._last_used[slot] = self._tick
-        scaling = adapter.scaling
-        self._scaling[slot] = scaling
+        self._scaling[slot] = adapter.scaling
+        if self.fanout is not None:
+            self.fanout("lora._write_slot", slot, adapter)
+        self._write_slot(slot, adapter)
+        for fn in self.listeners:
+            fn(slot)
+        return slot
+
+    def _write_slot(self, slot: int, adapter: LoRAAdapter) -> None:
+        """Write `adapter`'s factors (this rank's part of them) into
+        `slot`'s columns, zero-padded to the manager's rank."""
         L, r = self.config.n_layers, self.rank
+        rank, size = self.tp
         cols = slice(slot * r, (slot + 1) * r)
         for t in self.targets:
             a_dst, b_dst = self.a_all(t)[:, :, cols], self.b[t][:, cols, :]
@@ -273,17 +304,20 @@ class LoRAManager:
             if t in adapter.weights:
                 a, b = adapter.weights[t]
                 n = a.shape[-1]
-                a_pad[:, :, :n] = torch.from_numpy(
-                    np.array(a, dtype=np.float32))
+                a = np.asarray(a, dtype=np.float32)
                 # alpha/rank folds into B: the product needs no per-slot
                 # scale.
-                b_pad[:, :n, :] = torch.from_numpy(
-                    np.asarray(b, dtype=np.float32) * scaling)
+                b = np.asarray(b, dtype=np.float32) * adapter.scaling
+                if t in ROW_TARGETS:
+                    d = a_dst.shape[1]
+                    a = a[:, rank * d:(rank + 1) * d]
+                else:
+                    d = b_dst.shape[2]
+                    b = b[:, :, rank * d:(rank + 1) * d]
+                a_pad[:, :, :n] = torch.from_numpy(np.array(a))
+                b_pad[:, :n, :] = torch.from_numpy(np.array(b))
             a_dst.copy_(a_pad.to(self.dtype))
             b_dst.copy_(b_pad.to(self.dtype))
-        for fn in self.listeners:
-            fn(slot)
-        return slot
 
     def resize(self, n_slots: int) -> int:
         """Grow/shrink the user-slot pool (LoRAPoolPolicy's actuator),
@@ -297,6 +331,14 @@ class LoRAManager:
         total = new + 1
         if total == self.n_slots:
             return new
+        if self.fanout is not None:
+            self.fanout("lora._realloc", total)
+        self._realloc(total)
+        return new
+
+    def _realloc(self, total: int) -> None:
+        """New stacks of `total` slots keeping the first min(old, new)
+        slots' columns; the epoch moves on."""
         keep = min(self.n_slots, total)
         old = {t: self.slot_stacks(t) for t in self.targets}
         self._alloc(total)
@@ -306,7 +348,6 @@ class LoRAManager:
             a_new[:, :keep].copy_(old[t][0][:, :keep])
             b_new[:, :keep].copy_(old[t][1][:, :keep])
         self.epoch += 1
-        return new
 
 
 @dataclasses.dataclass

@@ -44,6 +44,21 @@ Port of ray_tpu/llm/model_runner.py:
   * The page plane: `gather_pages` / `scatter_pages` move whole KV pages
     between the pool and host arrays in JAX's layout (bf16 as uint16
     bits), for request export/adopt and the host prefix tier.
+  * Tensor parallelism (`mesh=`, a DeviceMesh whose `tp` axis has more
+    than one rank; llm/tp.py builds the world): parameters are this rank's
+    shards by `SERVE_RULES` (wq, wk, wv, w_gate, w_up column-parallel, wo
+    and w_down row-parallel, embed and lm_head over the vocabulary), the
+    KV pool holds this rank's n_kv_heads / tp heads and K5/K6 run on its
+    n_heads / tp query heads. Each layer all-reduces after wo and after
+    w_down; the embedding is a masked lookup plus an all-reduce; the fp32
+    logits are all-gathered along the vocabulary before sampling, so every
+    rank samples the same ids. Rank 0 (`channel=`) runs the engine and
+    sends each entry point to the other ranks before running it itself:
+    the unified step as a small header (its bucket key), its packed input
+    then reaching them inside the step (and inside its CUDA graph) as a
+    broadcast from rank 0; the other entry points as a pickled call whose
+    tensors go over the device group. The page plane gathers and scatters
+    the ranks' kv-head slices, so it speaks the whole-pool layout.
 
 The KV pool is updated in place (JAX donates and rebinds it). It holds
 one scratch page past the block manager's `num_blocks`, the counterpart
@@ -58,12 +73,14 @@ LoRA stacks: `scatter_pages`, `LoRAManager.load_adapter` and
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import math
 from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ray_tpu_torch.llm.lora import slot_mask
 from ray_tpu_torch.models import llama as llama_mod
@@ -71,6 +88,8 @@ from ray_tpu_torch.ops import paged_attention as pa
 from ray_tpu_torch.ops import resolve_device, to_numpy, to_torch
 from ray_tpu_torch.ops.layers import (apply_rope, rms_norm, rope_frequencies,
                                       swiglu)
+from ray_tpu_torch.parallel import collectives as col
+from ray_tpu_torch.parallel.sharding import SERVE_RULES, shard, spec_for
 
 logger = logging.getLogger(__name__)
 
@@ -79,10 +98,14 @@ NEG_INF = -1e30
 
 
 def init_kv_cache(config: llama_mod.LlamaConfig, num_blocks: int,
-                  block_size: int, device="cuda") -> Dict[str, torch.Tensor]:
+                  block_size: int, device="cuda",
+                  kv_heads: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """The K and V pools, (layers, kv_heads, num_blocks, block_size,
+    head_dim); `kv_heads` is this rank's share under tensor parallelism
+    (all of them by default)."""
     dev = resolve_device(device)
-    shape = (config.n_layers, config.n_kv_heads, num_blocks, block_size,
-             config.head_dim)
+    shape = (config.n_layers, kv_heads or config.n_kv_heads, num_blocks,
+             block_size, config.head_dim)
     return {"k": torch.zeros(shape, dtype=config.dtype, device=dev),
             "v": torch.zeros(shape, dtype=config.dtype, device=dev)}
 
@@ -333,6 +356,49 @@ def uses_kernel(device_type: str, head_dim: int, n_heads: int,
     return False
 
 
+# Commands of rank 0 to the other ranks of a tensor-parallel world
+# (llm/tp.py adds the world's own).
+CMD_MIXED, CMD_CALL = 1, 2
+
+
+@dataclasses.dataclass(frozen=True)
+class _TensorArg:
+    """Stands for the i-th tensor of a call sent to the other ranks."""
+    i: int
+
+
+def _fanned(fn):
+    """A runner entry point that rank 0 of a tensor-parallel world first
+    sends to the other ranks, which run it on their shards (their result is
+    dropped)."""
+    @functools.wraps(fn)
+    def run(self, *args, **kwargs):
+        if self._channel is None:
+            return fn(self, *args, **kwargs)
+        with self._channel.guard():
+            self._call(fn.__name__, *args, **kwargs)
+            return fn(self, *args, **kwargs)
+    return run
+
+
+def check_tensor_parallel(config: llama_mod.LlamaConfig, tp: int) -> None:
+    """Raise unless `tp` ranks can split the heads, kv heads, vocabulary
+    and MLP width evenly."""
+    split = {"n_heads": config.n_heads, "n_kv_heads": config.n_kv_heads,
+             "vocab_size": config.vocab_size, "d_ff": config.d_ff}
+    bad = {k: v for k, v in split.items() if v % tp}
+    if tp < 1 or bad:
+        raise ValueError(f"tensor_parallel={tp} does not divide {bad}")
+
+
+def param_axes_at(keys: Sequence[str]):
+    """The logical axes of the parameter at `keys` (llama's names)."""
+    axes = llama_mod.param_logical_axes()
+    for k in keys:
+        axes = axes[k]
+    return axes
+
+
 @dataclasses.dataclass
 class _MixedGraph:
     """One token bucket's captured mixed step: the graph, its static
@@ -348,10 +414,12 @@ class _MixedGraph:
 
 
 class ModelRunner:
-    """Bucketed steps over a paged cache, on one device: the unified step
-    replays one CUDA graph per token bucket on the card (eager with
-    `cuda_graphs=False`, and always on the CPU); the split path's steps
-    run eagerly."""
+    """Bucketed steps over a paged cache, on one device (this rank's, under
+    a tensor-parallel `mesh`): the unified step replays one CUDA graph per
+    token bucket on the card (eager with `cuda_graphs=False`, and always on
+    the CPU); the split path's steps run eagerly. Under a mesh `params` are
+    this rank's shards (llm/tp.py `local_params`), and rank 0 passes the
+    world's `channel`."""
 
     BATCH_BUCKETS = (1, 2, 4, 8, 16, 32)
     NEG_INF = NEG_INF
@@ -361,7 +429,7 @@ class ModelRunner:
                  chunk_size: int = 128,
                  max_blocks_per_seq: Optional[int] = None,
                  device="cuda", cuda_graphs: Optional[bool] = None,
-                 lora_manager=None):
+                 lora_manager=None, mesh=None, channel=None):
         self.device = resolve_device(device)
         if cuda_graphs and self.device.type != "cuda":
             raise ValueError(f"cuda_graphs=True needs a CUDA device, not "
@@ -370,8 +438,19 @@ class ModelRunner:
         self.cuda_graphs = (self.device.type == "cuda" if cuda_graphs is None
                             else bool(cuda_graphs))
         self.config = config
+        self.mesh = mesh
+        self.tp = 1 if mesh is None else mesh.size(
+            mesh.mesh_dim_names.index("tp"))
+        self.tp_rank = 0 if self.tp == 1 else mesh.get_local_rank("tp")
+        self._tp_group = None if self.tp == 1 else mesh.get_group("tp")
+        # Rank 0 of a tensor-parallel world sends every entry point to the
+        # others through it; None on the others and without a mesh.
+        self._channel = channel
+        check_tensor_parallel(config, self.tp)
+        self.n_heads = config.n_heads // self.tp
+        self.n_kv_heads = config.n_kv_heads // self.tp
         kernel = uses_kernel(self.device.type, config.head_dim,
-                             config.n_heads, config.n_kv_heads)
+                             self.n_heads, self.n_kv_heads)
         self._unified_attention = (
             pa.ragged_paged_attention_unified if kernel
             else pa.ragged_paged_attention_unified_reference)
@@ -383,17 +462,29 @@ class ModelRunner:
         self.max_blocks_per_seq = max_blocks_per_seq or (
             (config.max_seq + block_size - 1) // block_size)
         self.params = _place(params, self.device)
+        # The global shape and dtype of every parameter (meta tensors):
+        # what update_weights checks a payload against.
+        self.params_meta = _map_params(
+            lambda keys, p: torch.empty(self._global_shape(keys, p),
+                                        dtype=p.dtype, device="meta"),
+            self.params)
         # Multi-LoRA (llm/lora.py): with a manager, every step takes a
         # per-sequence slot index and adds each target's delta; without
         # one, no step (and no captured graph) holds a LoRA operation.
         self.lora = lora_manager
-        if lora_manager is not None and lora_manager.device != self.device:
-            raise ValueError(f"LoRA stacks on {lora_manager.device}, runner "
-                             f"on {self.device}")
+        if lora_manager is not None:
+            if lora_manager.device != self.device:
+                raise ValueError(f"LoRA stacks on {lora_manager.device}, "
+                                 f"runner on {self.device}")
+            if lora_manager.tp != (self.tp_rank, self.tp):
+                raise ValueError(f"LoRA stacks for tp {lora_manager.tp}, "
+                                 f"runner at {(self.tp_rank, self.tp)}")
+            if channel is not None:
+                lora_manager.fanout = self._call
         # Page num_blocks is the scratch page of the unified step's
         # padding rows.
         self.cache = init_kv_cache(config, num_blocks + 1, block_size,
-                                   self.device)
+                                   self.device, self.n_kv_heads)
         self.cos, self.sin = rope_frequencies(
             config.head_dim, config.max_seq, config.rope_theta,
             device=self.device)
@@ -405,6 +496,73 @@ class ModelRunner:
         # fp32 logits (S*W, V) of the last mixed step, for inspection (on
         # the card with graphs: the bucket's static output).
         self.last_logits: Optional[torch.Tensor] = None
+        # Called by close(): llm/tp.py sets it on rank 0 of a world.
+        self.on_close = None
+
+    # ---- tensor parallelism ------------------------------------------------
+
+    def _global_shape(self, keys, local: torch.Tensor) -> tuple:
+        spec = spec_for(param_axes_at(keys), SERVE_RULES)
+        return tuple(n * (self.tp if "tp" in axes else 1)
+                     for n, axes in zip(local.shape, spec))
+
+    def _call(self, path: str, *args, **kwargs) -> None:
+        """Send `self.<path>(*args, **kwargs)` to the other ranks; tensor
+        arguments go over the device group."""
+        tensors = []
+
+        def strip(a):
+            if isinstance(a, torch.Tensor):
+                tensors.append(a)
+                return _TensorArg(len(tensors) - 1)
+            return a
+
+        payload = (path, [strip(a) for a in args],
+                   {k: strip(v) for k, v in kwargs.items()})
+        self._channel.send(CMD_CALL, payload=payload, tensors=tensors)
+
+    def run_call(self, payload, tensors) -> None:
+        """Another rank's side of `_call`."""
+        path, args, kwargs = payload
+
+        def put(a):
+            return tensors[a.i] if isinstance(a, _TensorArg) else a
+
+        fn = self
+        for name in path.split("."):
+            fn = getattr(fn, name)
+        fn(*[put(a) for a in args], **{k: put(v) for k, v in kwargs.items()})
+
+    def _all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The row-parallel products' sum over the tp ranks (in place)."""
+        if self.tp > 1:
+            dist.all_reduce(x, group=self._tp_group)
+        return x
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Embedding rows of `tokens` in config.dtype; under tp each rank
+        looks up the ids in its vocabulary rows (others zero) and the ranks
+        sum."""
+        table = self.params["embed"]
+        if self.tp == 1:
+            return table[tokens].to(self.config.dtype)
+        rows = table.shape[0]
+        local = tokens - self.tp_rank * rows
+        inside = (local >= 0) & (local < rows)
+        x = table[local.clamp(0, rows - 1)] * inside[:, None].to(table.dtype)
+        return self._all_reduce(x).to(self.config.dtype)
+
+    def close(self) -> None:
+        """Under tensor parallelism, release the CUDA graphs (they hold the
+        world's collectives) and, on rank 0, the other ranks."""
+        if self.tp > 1:
+            for g in self._graphs.values():
+                g.graph.reset()
+            self._graphs.clear()
+            self._graph_pool = self.last_logits = None
+        if self.on_close is not None:
+            fn, self.on_close = self.on_close, None
+            fn()
 
     def _note_shapes(self, kind: str, *arrs) -> bool:
         """Record the padded shape signature entering the step. Returns True
@@ -467,7 +625,7 @@ class ModelRunner:
         config = self.config
         T = x.shape[0]
         params = self.params
-        H, K, hd = config.n_heads, config.n_kv_heads, config.head_dim
+        H, K, hd = self.n_heads, self.n_kv_heads, config.head_dim
         layers = params["layers"]
         for li in range(config.n_layers):
             h = rms_norm(x, layers["attn_norm"][li], config.norm_eps)
@@ -478,12 +636,12 @@ class ModelRunner:
                            rope_pos)
             write_kv(li, k, v.reshape(T, K, hd))
             attn = attend(li, q)
-            x = x + self._project(attn.reshape(T, H * hd), li, ("wo",),
-                                  mask)[0]
+            x = x + self._all_reduce(self._project(
+                attn.reshape(T, H * hd), li, ("wo",), mask)[0])
             h = rms_norm(x, layers["mlp_norm"][li], config.norm_eps)
             gate, up = self._project(h, li, ("w_gate", "w_up"), mask)
-            x = x + self._project(swiglu(gate, up), li, ("w_down",),
-                                  mask)[0]
+            x = x + self._all_reduce(self._project(
+                swiglu(gate, up), li, ("w_down",), mask)[0])
         return rms_norm(x, params["final_norm"], config.norm_eps)
 
     def _backbone_mixed(self, tokens, q_positions, kv_lens, cu_q_lens,
@@ -504,7 +662,7 @@ class ModelRunner:
         tok = torch.arange(T, device=self.device)
         local = tok - cu_q_lens.long()[seq]
         positions = q_positions.long()[seq] + local
-        x = params["embed"][tokens.long()].to(config.dtype)      # (T, d)
+        x = self._embed(tokens.long())                            # (T, d)
         logical_block = torch.clamp(positions // self.block_size, 0,
                                     block_tables.shape[1] - 1)
         # Padding rows write the scratch page (JAX drops them as out of
@@ -535,20 +693,31 @@ class ModelRunner:
 
     def _logits(self, rows: torch.Tensor) -> torch.Tensor:
         """lm_head with fp32 accumulation AND fp32 output (not a bf16
-        result cast up): logits feed argmax and sampling."""
+        result cast up): logits feed argmax and sampling. Under tp each
+        rank's vocabulary columns are all-gathered: every rank holds all
+        the logits."""
         lm_head = self.params["lm_head"]
         if lm_head.dtype == torch.float32:
-            return rows.float() @ lm_head
-        if rows.is_cuda:
-            return torch.mm(rows, lm_head, out_dtype=torch.float32)
-        # CPU: the plain version (no reduced-precision mm kernel there).
-        return rows.float() @ lm_head.float()
+            out = rows.float() @ lm_head
+        elif rows.is_cuda:
+            out = torch.mm(rows, lm_head, out_dtype=torch.float32)
+        else:
+            # CPU: the plain version (no reduced-precision mm kernel there).
+            out = rows.float() @ lm_head.float()
+        if self.tp > 1:
+            out = col.gather_global(out, self.mesh, 1, "tp")
+        return out
 
     def _mixed_core(self, buf: torch.Tensor, layout: dict, sampled: bool):
         """The whole mixed step on the packed input `buf` (on the device):
         backbone, head and acceptance sampler. Returns (samples then
         accept as one int32 (2 S W,) tensor, logits (S W, V)). What a
         bucket's graphs capture, all-greedy (`sampled=False`) or not."""
+        if self.tp > 1:
+            # Rank 0's packed input reaches the others here, inside the
+            # step (and inside its graph).
+            dist.broadcast(buf, src=dist.get_global_rank(self._tp_group, 0),
+                           group=self._tp_group)
         a = unpack_mixed(buf, layout)
         x = self._backbone_mixed(a["tokens"], a["q_positions"],
                                  a["kv_lens"], a["cu_q_lens"],
@@ -584,7 +753,16 @@ class ModelRunner:
         counter = pa.ragged_paged_attention_unified
         before = counter.launches
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._graph_pool):
+        mode = "global"
+        if self.tp > 1:
+            # Every rank captures the same buckets in the same order; with
+            # no collective in flight, the process group's watchdog has no
+            # work to query on the capturing stream, and its CUDA calls in
+            # other threads may go on during the capture.
+            torch.cuda.synchronize(self.device)
+            mode = "thread_local"
+        with torch.cuda.graph(graph, pool=self._graph_pool,
+                              capture_error_mode=mode):
             dev_out, logits = self._mixed_core(dev_in, layout, sampled)
         # The capture recorded these launches; each replay makes them.
         launches = counter.launches - before
@@ -652,10 +830,19 @@ class ModelRunner:
         if lora:
             arrays["lora_idx"] = (np.zeros(S, np.int32) if lora_idx is None
                                   else lora_idx)
+        if self._channel is None:
+            return self._step_mixed(key, layout, size, arrays, kind)
+        with self._channel.guard():
+            self._channel.send(CMD_MIXED, key[:4] + (int(sampled), epoch))
+            return self._step_mixed(key, layout, size, arrays, kind)
+
+    def _step_mixed(self, key, layout, size, arrays, kind):
+        T, S, W, _, sampled, _ = key
         if self.cuda_graphs:
             g = self._graphs.get(key)
             if g is None:
-                self._note_shapes(kind, tokens, out_rows, block_tables)
+                self._note_shapes(kind, arrays["tokens"], arrays["out_rows"],
+                                  arrays["block_tables"])
                 g = self._capture(key)
             pack_mixed(layout, size, arrays, out=g.host_in.numpy())
             g.dev_in.copy_(g.host_in, non_blocking=True)
@@ -663,13 +850,42 @@ class ModelRunner:
             pa.ragged_paged_attention_unified.launches += g.launches
             out, self.last_logits = g.dev_out, g.logits
         else:
-            self._note_shapes(kind, tokens, out_rows, block_tables)
+            self._note_shapes(kind, arrays["tokens"], arrays["out_rows"],
+                              arrays["block_tables"])
             out, self.last_logits = self._mixed_core(
                 self.to_device(pack_mixed(layout, size, arrays)), layout,
                 sampled)
         out = HostCopy(out).numpy()
         n = S * W
         return out[n:].reshape(S, W).astype(bool), out[:n].reshape(S, W)
+
+    @torch.no_grad()
+    def follow_mixed(self, T: int, S: int, W: int, max_pages: int,
+                     sampled: int, epoch: int) -> None:
+        """Another rank's side of `step_mixed`: the same bucket's step (its
+        graph on the card), its packed input arriving inside it from rank
+        0. Nothing comes back to the host."""
+        sampled = bool(sampled)
+        key = (T, S, W, max_pages, sampled, self._lora_epoch())
+        if key[-1] != epoch:
+            raise RuntimeError(f"LoRA epoch {key[-1]} here, rank 0 at "
+                               f"{epoch}")
+        layout, size = mixed_layout(*key[:4], lora=self.lora is not None)
+        kind = ("mixed" if sampled else "mixed_greedy") + (
+            f"@lora{epoch}" if epoch else "")
+        shapes = (np.empty(T), np.empty((S, W)), np.empty((S, max_pages)))
+        if self.cuda_graphs:
+            g = self._graphs.get(key)
+            if g is None:
+                self._note_shapes(kind, *shapes)
+                g = self._capture(key)
+            g.graph.replay()
+            pa.ragged_paged_attention_unified.launches += g.launches
+            self.last_logits = g.logits
+        else:
+            self._note_shapes(kind, *shapes)
+            buf = torch.zeros(size, dtype=torch.int32, device=self.device)
+            _, self.last_logits = self._mixed_core(buf, layout, sampled)
 
     def warm_mixed(self, T: int, S: int, W: int):
         """Run both variants of the mixed step for token bucket T (all
@@ -700,7 +916,7 @@ class ModelRunner:
         config = self.config
         params = self.params
         S, Bq = np.shape(tokens)
-        H, hd = config.n_heads, config.head_dim
+        H, hd = self.n_heads, config.head_dim
         scale = 1.0 / math.sqrt(hd)
         tables = np.asarray(block_tables)
         positions = (np.asarray(q_positions, np.int64)[:, None]
@@ -721,8 +937,8 @@ class ModelRunner:
         tables_t = self.to_device(tables)
         kv_lens_t = self.to_device(kv_lens)
         q_pos_t = self.to_device(q_positions)
-        x = params["embed"][self.to_device(tokens, torch.long).reshape(-1)]
-        x = x.to(config.dtype)                                  # (S*Bq, d)
+        x = self._embed(self.to_device(tokens, torch.long).reshape(-1))
+                                                                # (S*Bq, d)
         mask = None
         if self.lora is not None:
             slots = (np.zeros(S, np.int64) if lora_idx is None
@@ -757,6 +973,7 @@ class ModelRunner:
         return self._logits(x[self.to_device(last, torch.long)])
 
     @torch.no_grad()
+    @_fanned
     def step(self, tokens, q_positions, kv_lens, q_lens,
              block_tables, lora_idx=None) -> torch.Tensor:
         """One rectangular step; inputs are host arrays padded to a
@@ -768,6 +985,7 @@ class ModelRunner:
                                  block_tables, lora_idx)
 
     @torch.no_grad()
+    @_fanned
     def step_verify(self, tokens, q_positions, kv_lens, q_lens,
                     block_tables, lora_idx=None) -> torch.Tensor:
         """Speculative-verify step: greedy ids (S, Bq) int32 on the device;
@@ -781,6 +999,7 @@ class ModelRunner:
             torch.int32).reshape(np.shape(tokens))
 
     @torch.no_grad()
+    @_fanned
     def step_sample(self, tokens, q_positions, kv_lens, q_lens,
                     block_tables, temps, top_ks, top_ps, seeds,
                     counters, lora_idx=None) -> torch.Tensor:
@@ -795,6 +1014,7 @@ class ModelRunner:
                                    counters)
 
     @torch.no_grad()
+    @_fanned
     def step_sample_multi(self, n_steps: int, tokens, q_positions, kv_lens,
                           q_lens, block_tables, temps, top_ks, top_ps, seeds,
                           counters, lora_idx=None) -> torch.Tensor:
@@ -838,26 +1058,112 @@ class ModelRunner:
     def gather_pages(self, block_ids: Sequence[int]):
         """The KV pages backing `block_ids` as host arrays, each
         (n_layers, n_kv_heads, n_pages, block_size, head_dim), JAX's
-        layout. bf16 pages come back as their uint16 bits (numpy has no
-        bf16). The copy runs on the current stream, after every step
-        queued there."""
+        layout (every kv head, whatever the tp). bf16 pages come back as
+        their uint16 bits (numpy has no bf16). The copy runs on the
+        current stream, after every step queued there."""
+        self._page_ids(block_ids)
+        return tuple(to_numpy(t) for t in
+                     self._gather_pages([int(b) for b in block_ids]))
+
+    @_fanned
+    def _gather_pages(self, block_ids):
         ids = self._page_ids(block_ids)
-        return tuple(to_numpy(self.cache[side].index_select(2, ids))
-                     for side in ("k", "v"))
+        out = []
+        for side in ("k", "v"):
+            t = self.cache[side].index_select(2, ids)
+            if self.tp > 1:
+                t = col.gather_global(t, self.mesh, 1, "tp")
+            out.append(t)
+        return out
 
     def scatter_pages(self, block_ids: Sequence[int], k_pages, v_pages):
         """Write pages (gather_pages' layout; numpy, JAX bf16 arrays, their
         uint16 bits, or tensors) into the pool at `block_ids`, in place:
-        the pool a captured graph holds is never reallocated."""
-        ids = self._page_ids(block_ids)
+        the pool a captured graph holds is never reallocated. Under tp
+        each rank keeps its kv heads."""
+        self._page_ids(block_ids)
         pool = self.cache["k"]
-        want = pool.shape[:2] + (len(ids),) + pool.shape[3:]
-        for side, pages in (("k", k_pages), ("v", v_pages)):
-            t = _device_pages(pages, pool.dtype, self.device)
+        want = ((pool.shape[0], self.config.n_kv_heads, len(block_ids))
+                + pool.shape[3:])
+        pages = []
+        for side, p in (("k", k_pages), ("v", v_pages)):
+            t = _device_pages(p, pool.dtype, self.device)
             if tuple(t.shape) != tuple(want):
                 raise ValueError(f"{side} pages {tuple(t.shape)}, the pool "
                                  f"takes {tuple(want)}")
-            self.cache[side].index_copy_(2, ids, t)
+            pages.append(t)
+        self._scatter_pages([int(b) for b in block_ids], *pages)
+
+    @_fanned
+    def _scatter_pages(self, block_ids, k_pages, v_pages):
+        ids = self._page_ids(block_ids)
+        K = self.n_kv_heads
+        for side, t in (("k", k_pages), ("v", v_pages)):
+            self.cache[side].index_copy_(
+                2, ids, t.narrow(1, self.tp_rank * K, K))
+
+    # ---- per-rank readings ---------------------------------------------------
+
+    @_fanned
+    def rank_launches(self, reset: bool = False):
+        """[[K5, K6] launches] of every rank of the tp world in rank order
+        (this rank's alone without a mesh), counted in each process since
+        its last reset; `reset` zeroes them after the reading."""
+        counters = (pa.ragged_paged_attention_unified,
+                    pa.ragged_paged_attention)
+        counts = torch.tensor([[c.launches for c in counters]],
+                              dtype=torch.int64, device=self.device)
+        if self.tp > 1:
+            counts = col.gather_global(counts, self.mesh, 0, "tp")
+        if reset:
+            for c in counters:
+                c.launches = 0
+        return counts.tolist()
+
+    @_fanned
+    def rank_profile(self, start: bool):
+        """torch.profiler on every rank: `start=True` begins it; False ends
+        it and returns, per rank, [kernel time, NCCL kernel time] in
+        microseconds of device time since the start."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        if start:
+            self._profiler = profile(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA])
+            self._profiler.__enter__()
+            return None
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof, self._profiler = self._profiler, None
+        prof.__exit__(None, None, None)
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        total = sum(e.self_device_time_total for e in kernels)
+        nccl = sum(e.self_device_time_total for e in kernels
+                   if "nccl" in e.key.lower())
+        out = torch.tensor([[total, nccl]], dtype=torch.float64,
+                           device=self.device)
+        if self.tp > 1:
+            out = col.gather_global(out, self.mesh, 0, "tp")
+        return out.tolist()
+
+    # ---- weights -------------------------------------------------------------
+
+    @_fanned
+    def assign_param(self, keys, value: torch.Tensor) -> None:
+        """Copy the global parameter `value` (at `keys`, e.g. ("layers",
+        "wq")) into this rank's shard of it, in place: a captured graph
+        holds the shard's address. The caller checked shape and dtype."""
+        dst = self.params
+        for k in keys:
+            dst = dst[k]
+        src = value.to(self.device)
+        if self.tp > 1:
+            src = shard(src, spec_for(param_axes_at(keys), SERVE_RULES),
+                        self.mesh)
+        with torch.no_grad():
+            dst.copy_(src)
 
     # ---- on-device sampling of the split path ------------------------------
 
@@ -913,3 +1219,10 @@ def _place(tree, device: torch.device):
     if isinstance(tree, dict):
         return {k: _place(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+def _map_params(fn, tree, keys=()):
+    """fn(keys, leaf) over a parameter tree of nested dicts."""
+    if isinstance(tree, dict):
+        return {k: _map_params(fn, v, keys + (k,)) for k, v in tree.items()}
+    return fn(keys, tree)

@@ -7,8 +7,12 @@ one continuously-batched engine. Requests may name a LoRA adapter
 (`lora_name`); adapters load at build (`LLMConfig.lora_adapters`) or at
 run time (`load_lora_adapter`), and the slot pool may scale itself
 (`lora_autoscale`). Evicted prefix blocks spill to a host tier
-(`host_prefix_mb`). The cluster deployment, router, disagg tiers, the
-cluster prefix tier and migration are later slices.
+(`host_prefix_mb`). Weights come from `params`, from a manifest-format
+checkpoint (`params_checkpoint`) or from `seed`; `tensor_parallel=N`
+serves them on N cards as rank 0 of a world whose other ranks hold their
+shards (llm/tp.py), and `close()` stops those ranks. The cluster
+deployment, router, disagg tiers, the cluster prefix tier and migration
+are later slices.
 """
 
 from __future__ import annotations
@@ -38,7 +42,14 @@ class RequestTimeoutError(TimeoutError):
 @dataclasses.dataclass
 class LLMConfig:
     model_config: Any = None            # llama.LlamaConfig
+    # Directory of a manifest-format checkpoint (ray_tpu_torch/checkpoint,
+    # or the JAX package's): a parameter tree, or a train state whose
+    # "params" it holds. None: random weights from `seed`.
+    params_checkpoint: Optional[str] = None
     seed: int = 0
+    # Cards of the in-replica tensor-parallel world (llm/tp.py); more than
+    # the machine has raises.
+    tensor_parallel: int = 1
     num_kv_blocks: int = 256
     block_size: int = 16
     max_batch_size: int = 8
@@ -72,17 +83,70 @@ class LLMConfig:
     device: Any = "cuda"
 
 
+def _runner(llm_config: LLMConfig, config, device, params, cuda_graphs):
+    """The engine's ModelRunner: on this device alone, or as rank 0 of a
+    new tensor-parallel world of llm_config.tensor_parallel ranks, which
+    the runner's close() stops."""
+    from ray_tpu_torch.llm import tp as tp_mod
+    from ray_tpu_torch.llm.lora import TARGETS
+    from ray_tpu_torch.llm.model_runner import ModelRunner
+    from ray_tpu_torch.models import llama
+
+    n = llm_config.tensor_parallel
+    lora = ((llm_config.max_loras, llm_config.lora_rank, TARGETS)
+            if llm_config.lora_adapters else None)
+    if params is not None:
+        source = ("broadcast",)
+    elif llm_config.params_checkpoint:
+        source = ("checkpoint", llm_config.params_checkpoint)
+    else:
+        source = ("seed", llm_config.seed)
+    if n > 1:
+        from ray_tpu_torch.llm.model_runner import check_tensor_parallel
+
+        check_tensor_parallel(config, n)
+        spec = dict(config=config, num_blocks=llm_config.num_kv_blocks,
+                    block_size=llm_config.block_size,
+                    chunk_size=llm_config.prefill_chunk,
+                    cuda_graphs=cuda_graphs, lora=lora, source=source)
+        world = tp_mod.start_world(n, device)
+        try:
+            runner = tp_mod.build_runner(spec, world, device, params)
+        except BaseException:
+            tp_mod.stop_world(world)
+            raise
+        runner.on_close = lambda: tp_mod.stop_world(world)
+        return runner
+    if source[0] == "checkpoint":
+        params = tp_mod.local_params(source, config, None, device)
+    elif source[0] == "seed":
+        gen = torch.Generator(device=device).manual_seed(llm_config.seed)
+        params = llama.init_params(config, gen, device)
+    lora_manager = None
+    if lora is not None:
+        from ray_tpu_torch.llm.lora import LoRAManager
+
+        lora_manager = LoRAManager(config, n_slots=lora[0], rank=lora[1],
+                                   device=device)
+    return ModelRunner(config, params, num_blocks=llm_config.num_kv_blocks,
+                       block_size=llm_config.block_size,
+                       chunk_size=llm_config.prefill_chunk, device=device,
+                       cuda_graphs=cuda_graphs, lora_manager=lora_manager)
+
+
 def build_engine(llm_config: LLMConfig, params: Optional[Dict] = None,
                  cuda_graphs: Optional[bool] = None):
     """Construct an LLMEngine per config on llm_config.device (raises
     without CUDA unless device="cpu"), warmed per
     llm_config.warmup_buckets. `params` (the port's parameter dict)
-    defaults to random weights from llm_config.seed. `cuda_graphs` goes to
-    the ModelRunner: None replays the unified step's CUDA graphs (two per
+    defaults to the checkpoint at llm_config.params_checkpoint, else to
+    random weights from llm_config.seed. `cuda_graphs` goes to the
+    ModelRunner: None replays the unified step's CUDA graphs (two per
     token bucket) on the card, False runs the step eagerly there (to
-    compare the two)."""
+    compare the two). With tensor_parallel > 1 the engine's runner is
+    rank 0 of a new world of that many ranks: `engine.runner.close()`
+    stops them."""
     from ray_tpu_torch.llm.engine import LLMEngine
-    from ray_tpu_torch.llm.model_runner import ModelRunner
     from ray_tpu_torch.models import llama
 
     warm = llm_config.warmup_buckets
@@ -90,34 +154,24 @@ def build_engine(llm_config: LLMConfig, params: Optional[Dict] = None,
         raise ValueError(f"warmup_buckets: {warm!r} not off/light/full")
     device = resolve_device(llm_config.device)
     config = llm_config.model_config or llama.LlamaConfig.tiny()
-    if params is None:
-        gen = torch.Generator(device=device).manual_seed(llm_config.seed)
-        params = llama.init_params(config, gen, device)
-    lora_manager = None
-    if llm_config.lora_adapters:
-        from ray_tpu_torch.llm.lora import LoRAManager
-
-        lora_manager = LoRAManager(config, n_slots=llm_config.max_loras,
-                                   rank=llm_config.lora_rank, device=device)
-        for adapter in llm_config.lora_adapters:
-            lora_manager.load_adapter(adapter)
-    runner = ModelRunner(config, params,
-                         num_blocks=llm_config.num_kv_blocks,
-                         block_size=llm_config.block_size,
-                         chunk_size=llm_config.prefill_chunk,
-                         device=device, cuda_graphs=cuda_graphs,
-                         lora_manager=lora_manager)
-    engine = LLMEngine(
-        runner, max_batch_size=llm_config.max_batch_size,
-        tokenizer=llm_config.tokenizer,
-        prefill_chunk=llm_config.prefill_chunk,
-        enable_prefix_caching=llm_config.enable_prefix_caching,
-        speculative_ngram=llm_config.speculative_ngram,
-        decode_multi_step=llm_config.decode_multi_step,
-        unified_ticks=llm_config.unified_ticks,
-        token_budget=llm_config.token_budget)
-    if warm != "off":
-        engine.warmup(full=warm == "full")
+    runner = _runner(llm_config, config, device, params, cuda_graphs)
+    try:
+        for adapter in llm_config.lora_adapters or ():
+            runner.lora.load_adapter(adapter)
+        engine = LLMEngine(
+            runner, max_batch_size=llm_config.max_batch_size,
+            tokenizer=llm_config.tokenizer,
+            prefill_chunk=llm_config.prefill_chunk,
+            enable_prefix_caching=llm_config.enable_prefix_caching,
+            speculative_ngram=llm_config.speculative_ngram,
+            decode_multi_step=llm_config.decode_multi_step,
+            unified_ticks=llm_config.unified_ticks,
+            token_budget=llm_config.token_budget)
+        if warm != "off":
+            engine.warmup(full=warm == "full")
+    except BaseException:
+        runner.close()
+        raise
     return engine
 
 
@@ -144,6 +198,10 @@ class LLMServer:
     def __init__(self, llm_config: LLMConfig, params: Optional[Dict] = None,
                  cuda_graphs: Optional[bool] = None):
         self.engine = build_engine(llm_config, params, cuda_graphs)
+        dev = self.engine.runner.device
+        self._cuda_index = (None if dev.type != "cuda" else dev.index
+                            if dev.index is not None
+                            else torch.cuda.current_device())
         self.config = llm_config
         self.tokenizer = llm_config.tokenizer
         self._timeout_s = llm_config.stream_timeout_s
@@ -173,8 +231,11 @@ class LLMServer:
         self._loop.start()
 
     def close(self, timeout: float = 10.0) -> None:
+        """Stop the engine loop, then the other ranks of a tensor-parallel
+        world (none is left behind)."""
         self._stop.set()
         self._loop.join(timeout)
+        self.engine.runner.close()
 
     def __enter__(self):
         return self
@@ -185,6 +246,10 @@ class LLMServer:
     # ---- engine loop -----------------------------------------------------
 
     def _engine_loop(self):
+        # The current CUDA device is per thread: the loop takes the one
+        # the server was built on.
+        if self._cuda_index is not None:
+            torch.cuda.set_device(self._cuda_index)
         while not self._stop.is_set():
             now = time.monotonic()
             if self._lora_policy is not None and now - self._policy_t0 >= 1:

@@ -213,3 +213,53 @@ def collectives(rank, world):
     outs = [None] * world
     torch.distributed.all_gather_object(outs, out)
     return outs if rank == 0 else None
+
+
+def _llama_step(config, mesh_kw, lr):
+    """(mesh, specs, init_fn, make_step) of the tiny fp32 Llama's sharded
+    train step on `mesh_kw`."""
+    m = build_mesh(MeshConfig(**mesh_kw), device="cpu")
+    init_fn, make_step = fsdp.build_train_step(
+        lambda p, b: llama.loss_fn(p, b, config), adamw(lr), m,
+        llama.param_logical_axes(config), BATCH_AXES, TRAIN_RULES)
+    return m, init_fn, make_step
+
+
+def mesh_checkpoint(rank, world, mesh, config, tree, tokens, lr, steps,
+                    directory):
+    """`steps` steps on the mesh, save_state into `directory`, then one
+    more step: the losses of all steps (the last is the uninterrupted
+    run's next loss) and this rank's bytes written."""
+    from ray_tpu_torch.parallel.checkpoint import save_state
+
+    config = llama.LlamaConfig.tiny(dtype=torch.float32, **config)
+    m, init_fn, make_step = _llama_step(config, mesh, lr)
+    state, specs = init_fn(llama.params_from_numpy(tree, config,
+                                                   device="cpu"))
+    step, batch = make_step(specs), {"tokens": torch.from_numpy(tokens)}
+    losses = []
+    for _ in range(steps):
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"].item())
+    saved = save_state(state, specs, m, directory)
+    state, metrics = step(state, batch)
+    losses.append(metrics["loss"].item())
+    return {"losses": losses, "saved": saved, "rank": rank}
+
+
+def mesh_resume(rank, world, mesh, config, tree, tokens, lr, directory):
+    """restore_state on this world's mesh, then one step: its loss, the
+    restored step count and the params gathered after it."""
+    from ray_tpu_torch.parallel.checkpoint import restore_state
+
+    config = llama.LlamaConfig.tiny(dtype=torch.float32, **config)
+    m, init_fn, make_step = _llama_step(config, mesh, lr)
+    _, specs = init_fn(llama.params_from_numpy(tree, config, device="cpu"))
+    state = restore_state(directory, specs, m)
+    restored_step = state["step"]
+    state, metrics = make_step(specs)(state,
+                                      {"tokens": torch.from_numpy(tokens)})
+    params = _np(gather_tree(state["params"], specs["params"], m))
+    return {"loss": metrics["loss"].item(), "step": restored_step,
+            "count": state["opt_state"]["count"],
+            "params": params if rank == 0 else None}
