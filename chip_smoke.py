@@ -6,9 +6,11 @@
     python3 chip_smoke.py --phases device,build,kernel,split
     python3 chip_smoke.py --phases device,build,kernel,train
     python3 chip_smoke.py --phases device,build,lora,pages
+    python3 chip_smoke.py --phases device,build,disagg
     python3 chip_smoke.py --phases device,build,mesh
     python3 chip_smoke.py --phases device,build,checkpoint,tp   # 2-4 cards
     python3 chip_smoke.py --phases device --turns parent,.,.,parent
+    python3 chip_smoke.py --phases device --turns a,b,b,a --turn-legs server
 
 Phases, in order; any failure raises and the exit code is non-zero:
   1. device    nvidia-smi name + power limit, torch.cuda device name; TF32
@@ -72,13 +74,33 @@ Phases, in order; any failure raises and the exit code is non-zero:
                the host tier (prefill computed == prompt - saved); an
                update_weights in place (no capture) that drops both
                tiers, then the old weights back.
-  7. split     the same model and weights through the split path: the
+  7. disagg    disaggregated prefill/decode and live migration on one
+               card, on the same Llama-3-8B weights: a PrefillServer
+               (prefill-only engine: the split path, K6, no CUDA graph)
+               hands every request of the server's mix over localhost
+               (llm/disagg.py wire, through router.prefill_with_retry) to
+               a graphed decode LLMServer (K5 in its replays); TTFT, ITL
+               p50/p99 and tok/s against the unified server in turns a,
+               b, b, a; per handoff its bytes, send ms, GB/s and the
+               decode side's request_breakdown handoff_s; a handoff of
+               44 pages split into gather, wire and scatter. Each tier's
+               launches from 0: the prefill tier K6 only (its handoffs
+               held by a listener), the decode server K5 only with no
+               capture. Mid-decode the unified server migrates its five
+               live requests to the decode server (pause per request,
+               migrated/replayed split; every consumer re-collects on the
+               target). fp32 at 2 layers: greedy tokens through prefill ->
+               wire -> decode equal a single unified server's and naive
+               forward's, a session migrated at token 4 equals one that
+               never moved, a seeded request equals its single-server run,
+               every page ends free.
+  8. split     the same model and weights through the split path: the
                server's request mix on a unified_ticks=False engine, a
                repetition-penalty request on a default engine (routed to
                the split host-logits path), multi-step and split
                speculative engines; every run launches K6 n_layers times
                per runner step and K5 never; decode-step profile.
-  8. identity  full width at 2 layers in fp32: the greedy tokens of the
+  9. identity  full width at 2 layers in fp32: the greedy tokens of the
                unified (graphed and eager), unified-speculative, split,
                multi-step and split-speculative engines equal greedy
                decoding with the naive llama.forward, the unified
@@ -94,7 +116,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
                host-promoted prefix give the undisturbed run's tokens;
                after update_weights the engine equals a fresh engine on
                the new weights.
-  9. train     the JAX package's bench training configuration (vocab
+ 10. train     the JAX package's bench training configuration (vocab
                32000, d 2048, 14 layers, 16/8 heads, d_ff 7168, bf16) at
                full width and depth: flash attention, "dots" remat, batch
                4 x 2048, AdamW(1e-4, 0.9, 0.95, mu bf16), 2 warm-up and 10
@@ -106,7 +128,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
                flash_fwd launches per step) and an fp32 identity check (2
                layers, batch 2 x 512: loss and every gradient with flash
                attention equal those with the reference).
- 10. mesh      in-program parallelism (ray_tpu_torch.parallel) on a
+ 11. mesh      in-program parallelism (ray_tpu_torch.parallel) on a
                one-rank NCCL group: (a) fsdp.build_train_step on a mesh of
                one rank against train/step.py on the same weights (the
                bench configuration, 3 warm-up steps each, then 3 steps
@@ -136,7 +158,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
                movement within 1e-3 by norm and every element within one
                step's movement, lr); it prints its number of ranks either
                way.
- 11. checkpoint sharded checkpoints in the ray-tpu-ckpt-v1 format: the
+ 12. checkpoint sharded checkpoints in the ray-tpu-ckpt-v1 format: the
                bench cell's train state (bf16) after 2 steps saved at
                world 1 (save_sharded) and world 2 (CheckpointPlane async
                saves), restored, and one more step: its loss equals the
@@ -144,7 +166,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
                a 2-layer full-width Llama-3-8B fp32 server loaded through
                LLMConfig.params_checkpoint gives the greedy tokens of the
                server built from memory and of naive llama.forward.
- 12. tp        tensor-parallel serving, with 2 or more cards (it logs that
+ 13. tp        tensor-parallel serving, with 2 or more cards (it logs that
                it did not run on one): fp32 2-layer full-width Llama-3-8B
                greedy tokens at tp = 4 (or 2) equal one card's on the
                unified, speculative and split servers; the bf16 Llama-3-8B
@@ -172,7 +194,10 @@ in the order given (TURN_CASES: the forward at train, gqa4 and long_fwd,
 dQ and dK/dV at train and long_bwd, K5 at tick_136, tick_64, mixed,
 decode and prefill_long, K6 at split_decode, split_chunk,
 split_chunk_batch and split_verify): run parent, change, change, parent
-to compare two versions on one card.
+to compare two versions on one card. `--turn-legs server` (or
+`kernels,server`) runs, in each child, the server phase's graphed
+Llama-3-8B server on the tree's package instead: the five-request mix
+three times and decode steps of 8 rows (`_decode_walls`).
 Prints a `{"kernels": [...]}` line, then, last, the device line
 `{"ok": true, "device": {...}}`; `--out FILE` also writes every result as
 JSON. Imports nothing of jax or ray_tpu.
@@ -194,7 +219,8 @@ import time
 import zlib
 
 ALL_PHASES = ("device", "build", "kernel", "server", "lora", "pages",
-              "split", "identity", "train", "mesh", "checkpoint", "tp")
+              "disagg", "split", "identity", "train", "mesh", "checkpoint",
+              "tp")
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12,     # dense bf16 tensor-core rate
             "float32": 67e12}       # fp32 outside the tensor cores
@@ -814,30 +840,74 @@ def _turn_times(torch):
     print("TURN " + json.dumps(res), flush=True)
 
 
-def run_turns(trees):
-    """The bf16 kernels of each tree in `trees` (a directory holding
-    a ray_tpu_torch package, e.g. a parent commit's unpacked copy), one
-    child process each, in the order given (parent, change, change,
-    parent): kernel ms per TURN_CASES pair."""
+def _turn_server(torch):
+    """Child of --turns, server leg: the server phase's graphed Llama-3-8B
+    server of whichever ray_tpu_torch this process imports runs the
+    five-request mix three times (new prompts each time), then decode
+    steps of 8 rows (`_decode_walls`). Prints one TURN_SERVER line."""
+    from ray_tpu_torch.llm.serving import LLMServer, build_engine
+
+    config, params = _llama8b(torch)
+    server = LLMServer(_engine_config(config), params=params)
+    runs = []
+    for i in range(3):
+        _, numbers = _server_run(
+            torch, server, _mix_requests(config, f"tserver{i}",
+                                         SEED + 50 + i),
+            config, f"turn server {i}")
+        runs.append({k: numbers[k] for k in (
+            "generated_tok_s", "itl_p50_ms", "itl_p99_ms", "ttft_ms",
+            "ticks", "k5_launches", "wall_s")})
+    server.close()
+    del server
+    gc.collect()
+    engine = build_engine(_engine_config(config, warmup_buckets="light"),
+                          params=params)
+    walls = _decode_walls(torch, {"graphed": engine}, config)["graphed"]
+    print("TURN_SERVER " + json.dumps(dict(runs=runs, decode_walls_ms=walls)),
+          flush=True)
+
+
+def run_turns(trees, legs=("kernels",)):
+    """Each tree in `trees` (a directory holding a ray_tpu_torch package,
+    e.g. a parent commit's unpacked copy) in a child process of its own,
+    in the order given (parent, change, change, parent): with the
+    "kernels" leg the bf16 kernels' ms per TURN_CASES pair, with the
+    "server" leg the server mix and decode walls (`_turn_server`)."""
     here = os.path.abspath(__file__)
     rows = []
     for tree in trees:
         proc = subprocess.run(
-            [sys.executable, here, "--phases", "device", "--turn-in", tree],
+            [sys.executable, here, "--phases", "device", "--turn-in", tree,
+             "--turn-legs", ",".join(legs)],
             capture_output=True, text=True, timeout=900)
-        line = next((x for x in proc.stdout.splitlines()
-                     if x.startswith("TURN ")), None)
-        if proc.returncode != 0 or line is None:
+        lines = {x.split(" ", 1)[0]: x.split(" ", 1)[1]
+                 for x in proc.stdout.splitlines()
+                 if x.startswith(("TURN ", "TURN_SERVER "))}
+        want = {"kernels": "TURN", "server": "TURN_SERVER"}
+        if proc.returncode != 0 or any(want[leg] not in lines
+                                       for leg in legs):
             raise RuntimeError(f"turn in {tree} failed:\n{proc.stdout}"
                                f"\n{proc.stderr[-4000:]}")
-        row = json.loads(line[5:])
+        row = {"tree": tree}
+        if "kernels" in legs:
+            row.update(json.loads(lines["TURN"]))
+            labels = [_turn_label(*c) for c in TURN_CASES]
+            log(f"turn {tree}: " + ", ".join(
+                f"{c} {row[c]['ms']:.4f} ms"
+                + (f" (graph {row[c]['graph_ms']:.4f})"
+                   if "graph_ms" in row[c] else "")
+                + f" (err {row[c]['max_abs_err']:.3g})" for c in labels))
+        if "server" in legs:
+            row["server"] = json.loads(lines["TURN_SERVER"])
+            log(f"turn server {tree}: mix tok/s "
+                + ", ".join(f"{r['generated_tok_s']:.1f}"
+                            for r in row["server"]["runs"])
+                + "; ITL p50 ms "
+                + ", ".join(f"{r['itl_p50_ms']:.2f}"
+                            for r in row["server"]["runs"])
+                + f"; decode step ms {row['server']['decode_walls_ms']}")
         rows.append(row)
-        labels = [_turn_label(*c) for c in TURN_CASES]
-        log(f"turn {tree}: " + ", ".join(
-            f"{c} {row[c]['ms']:.4f} ms"
-            + (f" (graph {row[c]['graph_ms']:.4f})" if "graph_ms" in row[c]
-               else "") + f" (err {row[c]['max_abs_err']:.3g})"
-            for c in labels))
     RESULTS["turns"] = rows
 
 
@@ -1538,6 +1608,391 @@ def _decode_walls(torch, engines, config, n_ticks=12):
         f"{' '.join(2 * (names + names[::-1]))}): "
         + "; ".join(f"{n} {w}" for n, w in walls.items()))
     return walls
+
+
+def _disagg_request(prefill, decode, request, record):
+    """One disaggregated request: prefill on the prefill tier through
+    prefill_with_retry (the handoff over localhost), then the decode
+    server's stream. TTFT is the time until the first token exists on the
+    decode side (prefill done, pages adopted); the gaps run from there
+    through every token the decode server streams."""
+    from ray_tpu_torch.llm.router import LocalReplica, prefill_with_retry
+
+    t0 = time.perf_counter()
+    res = prefill_with_retry([LocalReplica(prefill, name="prefill-0")],
+                             request, decode.handoff_address())
+    if not res["handoff"]:
+        raise AssertionError(f"{request['request_id']} finished at prefill")
+    times = [time.perf_counter()]
+    tokens = []
+    for ev in decode.completions_collect_stream(res["rid"]):
+        if ev["finished"]:
+            tokens = ev["token_ids"]
+        else:
+            times.append(time.perf_counter())
+    record[request["request_id"]] = dict(
+        tokens=tokens, ttft_s=times[0] - t0,
+        total_s=time.perf_counter() - t0,
+        gaps_s=[b - a for a, b in zip(times, times[1:])],
+        handoff_bytes=res["handoff_bytes"], handoff_s=res["handoff_s"])
+
+
+def _disagg_run(torch, prefill, decode, requests, config, label):
+    """The mix through the prefill tier and the decode server at once,
+    the K5 and K6 counts at 0 just before it: both kernels must launch
+    (K6 on the prefill engine's split steps, K5 on the decode server's
+    replays) and the decode server must capture nothing. Per handoff its
+    bytes, send ms and GB/s, and the decode side's request_breakdown."""
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    stats0 = decode.engine_stats()
+    pa.ragged_paged_attention_unified.launches = 0
+    pa.ragged_paged_attention.launches = 0
+    record: dict = {}
+    t0 = time.perf_counter()
+    errors = []
+
+    def one(r):
+        try:
+            _disagg_request(prefill, decode, r, record)
+        except Exception as e:  # re-raised below: the phase fails
+            errors.append(e)
+
+    threads = [threading.Thread(target=one, args=(r,)) for r in requests]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    k5 = pa.ragged_paged_attention_unified.launches
+    k6 = pa.ragged_paged_attention.launches
+    stats = decode.engine_stats()
+    for r in requests:
+        got = record[r["request_id"]]["tokens"]
+        if len(got) != 32 or not all(0 <= t < config.vocab_size
+                                     for t in got):
+            raise AssertionError(f"{r['request_id']}: bad output {got}")
+    if not k5 or not k6:
+        raise AssertionError(f"disagg {label}: K5 {k5}, K6 {k6} launches")
+    if stats["step_compiles"] != stats0["step_compiles"]:
+        raise AssertionError(f"disagg {label}: the decode server captured "
+                             f"{stats['step_compiles']} != "
+                             f"{stats0['step_compiles']}")
+    adopted = stats["handoffs_adopted"] - stats0["handoffs_adopted"]
+    if adopted != len(requests):
+        raise AssertionError(f"disagg {label}: {adopted} handoffs adopted")
+    out = _mix_numbers(record, wall)
+    handoffs = [dict(request=k, bytes=v["handoff_bytes"],
+                     ms=v["handoff_s"] * 1e3,
+                     gb_s=v["handoff_bytes"] / v["handoff_s"] / 1e9,
+                     breakdown_handoff_ms=decode.engine.breakdowns[k][
+                         "handoff_s"] * 1e3)
+                for k, v in record.items()]
+    out.update(requests=len(requests), k5_launches=k5, k6_launches=k6,
+               step_compiles=stats["step_compiles"], handoffs=handoffs)
+    log(f"disagg {label}: {len(requests)} requests, "
+        f"{out['generated_tokens']} tokens in {wall:.2f} s "
+        f"({out['generated_tok_s']:.1f} generated tok/s), ITL p50 "
+        f"{out['itl_p50_ms']:.2f} ms p99 {out['itl_p99_ms']:.2f} ms, K5 "
+        f"{k5} K6 {k6} launches, step_compiles {stats['step_compiles']} "
+        f"(unchanged); TTFT ms {out['ttft_ms']}; handoffs (bytes, ms, "
+        f"GB/s, breakdown handoff ms): "
+        + ", ".join(f"{h['bytes']} {h['ms']:.2f} {h['gb_s']:.3f} "
+                    f"{h['breakdown_handoff_ms']:.2f}" for h in handoffs))
+    return out
+
+
+def _disagg_launches(torch, prefill, decode, requests, config):
+    """Each tier's kernels alone: the prefill tier hands the mix to a
+    listener that holds the pages (counts from 0: K6 only), then the held
+    requests go over the wire to the decode server (counts from 0: K5
+    only, no capture)."""
+    from ray_tpu_torch.llm.disagg import KVStreamServer, send_handoff
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    held = []
+    holder = KVStreamServer(lambda s, k, v: held.append((s, k, v)) or True)
+    try:
+        pa.ragged_paged_attention_unified.launches = 0
+        pa.ragged_paged_attention.launches = 0
+        for r in requests:
+            prefill.prefill(r, holder.address)
+        torch.cuda.synchronize()
+        tier = {"prefill": [pa.ragged_paged_attention_unified.launches,
+                            pa.ragged_paged_attention.launches]}
+    finally:
+        holder.close()
+    stats0 = decode.engine_stats()
+    pa.ragged_paged_attention_unified.launches = 0
+    pa.ragged_paged_attention.launches = 0
+    kv_dtype = decode.engine.runner.kv_dtype_name
+    for state, k, v in held:
+        send_handoff(decode.handoff_address(), state, k, v, kv_dtype=kv_dtype)
+    for state, _, _ in held:
+        decode.completions_collect(state["id"])
+    torch.cuda.synchronize()
+    tier["decode"] = [pa.ragged_paged_attention_unified.launches,
+                      pa.ragged_paged_attention.launches]
+    stats = decode.engine_stats()
+    ok = (tier["prefill"][0] == 0 and tier["prefill"][1] > 0
+          and tier["decode"][0] > 0 and tier["decode"][1] == 0
+          and stats["step_compiles"] == stats0["step_compiles"])
+    log(f"disagg launches [K5, K6]: prefill tier {tier['prefill']}, decode "
+        f"server {tier['decode']}, decode step_compiles "
+        f"{stats0['step_compiles']} -> {stats['step_compiles']}")
+    if not ok:
+        raise AssertionError(f"disagg launches per tier {tier}")
+    return tier
+
+
+def _handoff_parts(torch, decode, n_pages=44, reps=3):
+    """Where a handoff's time goes, at the 700-token prompt's 44 pages
+    (88 MiB of bf16 KV): gather_pages (device to host), the wire alone
+    (send_handoff to a listener that adopts nothing) and scatter_pages
+    (host to device), each on the idle decode server's free pages under
+    its lock; best of `reps`, ms and GB/s."""
+    from ray_tpu_torch.llm.disagg import KVStreamServer, send_handoff
+
+    ids = list(range(n_pages))
+    runner = decode.engine.runner
+    times = {"gather": [], "wire": [], "scatter": []}
+    sink = KVStreamServer(lambda *a: True)
+    try:
+        for _ in range(reps):
+            with decode._lock:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                k, v = runner.gather_pages(ids)
+                times["gather"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            send_handoff(sink.address, {"id": "parts"}, k, v,
+                         kv_dtype=runner.kv_dtype_name)
+            times["wire"].append(time.perf_counter() - t0)
+            with decode._lock:
+                t0 = time.perf_counter()
+                runner.scatter_pages(ids, k, v)
+                torch.cuda.synchronize()
+                times["scatter"].append(time.perf_counter() - t0)
+    finally:
+        sink.close()
+    nbytes = int(k.nbytes + v.nbytes)
+    out = {name: dict(ms=min(t) * 1e3, gb_s=nbytes / min(t) / 1e9)
+           for name, t in times.items()}
+    out["bytes"] = nbytes
+    log(f"handoff parts, {n_pages} pages ({nbytes} bytes), best of {reps}: "
+        + ", ".join(f"{name} {out[name]['ms']:.2f} ms "
+                    f"({out[name]['gb_s']:.2f} GB/s)" for name in times))
+    return out
+
+
+def _migrate_live(torch, source, target, requests, config):
+    """Mid-decode, `source` migrates its live requests to `target`: every
+    consumer gets SESSION_MIGRATED and re-collects on the target (kv) or
+    re-submits there (replay); each must end with its 32 tokens. Returns
+    the split and the per-request pause (the target's stall_s)."""
+    from ray_tpu_torch.llm.router import _migrated_mode
+
+    tokens, modes, errors = {}, {}, []
+
+    def consume(r):
+        rid = r["request_id"]
+        try:
+            out = source.completions(r)
+            modes[rid] = "finished"
+        except Exception as e:
+            mode = _migrated_mode(e)
+            if mode is None:
+                errors.append(e)
+                return
+            modes[rid] = mode
+            out = (target.completions_collect(rid) if mode == "kv"
+                   else target.completions(r))
+        tokens[rid] = out["choices"][0]["token_ids"]
+
+    threads = [threading.Thread(target=consume, args=(r,))
+               for r in requests]
+    for th in threads:
+        th.start()
+    deadline = time.monotonic() + 120
+    while True:
+        with source._lock:
+            running = [len(r.output) for r in source.engine.running]
+        if len(running) == len(requests) and min(running) >= 2:
+            break
+        if time.monotonic() > deadline:
+            raise AssertionError(f"migration: running {running}")
+        time.sleep(0.001)
+    t0 = time.perf_counter()
+    res = source.migrate_sessions(target.handoff_address())
+    migrate_s = time.perf_counter() - t0
+    for th in threads:
+        th.join(600)
+    source.resume_admission()
+    if errors:
+        raise errors[0]
+    for r in requests:
+        got = tokens.get(r["request_id"], [])
+        if len(got) != 32:
+            raise AssertionError(f"migration {r['request_id']}: {got}")
+    pause = {rid: target.engine.breakdowns[rid]["stall_s"] * 1e3
+             for rid in res["migrated"]}
+    out = dict(migrated=res["migrated"], replayed=res["replayed"],
+               finished=res["finished"], send_failed=res["send_failed"],
+               migrate_sessions_ms=migrate_s * 1e3, pause_ms=pause,
+               modes=modes)
+    log(f"migration: {len(res['migrated'])} migrated with KV, "
+        f"{len(res['replayed'])} replayed, {len(res['finished'])} finished "
+        f"in the harvest, migrate_sessions {migrate_s * 1e3:.1f} ms; pause "
+        f"ms {({k: round(v, 2) for k, v in pause.items()})}")
+    return out
+
+
+def _disagg_identity(torch):
+    """fp32, 2 layers at full width: greedy tokens through prefill ->
+    wire -> decode equal a single unified server's and naive
+    llama.forward's; a session migrated mid-decode gives the tokens of
+    one that never moved; a seeded request (temperature 0.8) equals its
+    single-server run; every server ends with every page free."""
+    from ray_tpu_torch.llm.disagg import PrefillServer
+    from ray_tpu_torch.llm.serving import LLMConfig, LLMServer
+    from ray_tpu_torch.models import llama
+
+    config = llama.LlamaConfig.llama3_8b(n_layers=2, dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    params = llama.init_params(config, gen, "cuda")
+    cfg = LLMConfig(model_config=config, block_size=16, num_kv_blocks=256,
+                    max_batch_size=8, prefill_chunk=128, device="cuda")
+    single = LLMServer(cfg, params=params)
+    decode = LLMServer(cfg, params=params)
+    prefill = PrefillServer(cfg, params=params)
+    # The migration's source: its loop is stopped, so each session is
+    # exported at a known token (4 of 24).
+    source = LLMServer(cfg, params=params)
+    source._stop.set()
+    source._loop.join(10)
+    try:
+        prompts = _prompts([37, 150, 260], config.vocab_size, SEED + 1)
+        n_new = 8
+        naive = [_naive(torch, llama, params, config, p, n_new,
+                        lambda lg, _: torch.argmax(lg)) for p in prompts]
+        out = {}
+        for i, p in enumerate(prompts):
+            req = dict(prompt=p, max_tokens=n_new, request_id=f"id-{i}")
+            record: dict = {}
+            _disagg_request(prefill, decode, req, record)
+            got = record[req["request_id"]]["tokens"]
+            alone = single.completions(dict(req))["choices"][0]["token_ids"]
+            if not got == alone == naive[i]:
+                raise AssertionError(f"disagg identity {i}: {got} vs single "
+                                     f"{alone} vs naive {naive[i]}")
+        out["greedy_equal"] = len(prompts)
+        seeded = dict(prompt=prompts[1], max_tokens=16, temperature=0.8,
+                      top_k=50, seed=1234, request_id="id-seeded")
+        record = {}
+        _disagg_request(prefill, decode, seeded, record)
+        alone = single.completions(dict(seeded))["choices"][0]["token_ids"]
+        if record["id-seeded"]["tokens"] != alone:
+            raise AssertionError(f"seeded disagg {record['id-seeded']} vs "
+                                 f"{alone}")
+        out["seeded_equal"] = True
+        from ray_tpu_torch.llm.sampling import SamplingParams
+
+        moved = {}
+        for i, p in enumerate(prompts[:2]):
+            rid = f"mig-{i}"
+            source._submit(p, SamplingParams(max_tokens=24), rid)
+            while not any(r.id == rid and len(r.output) >= 4
+                          for r in source.engine.running):
+                source.engine.step()
+            res = source.migrate_sessions(decode.handoff_address())
+            source.resume_admission()
+            if res["migrated"] != [rid]:
+                raise AssertionError(f"identity migration {res}")
+            moved[rid] = decode.completions_collect(rid)["choices"][0][
+                "token_ids"]
+            unmoved = single.completions(dict(prompt=p, max_tokens=24))[
+                "choices"][0]["token_ids"]
+            if moved[rid] != unmoved or moved[rid][:n_new] != naive[i]:
+                raise AssertionError(f"migrated {rid}: {moved[rid]} vs "
+                                     f"unmoved {unmoved}")
+        out["migrated_equal"] = len(moved)
+        free = {}
+        for name, srv in (("single", single), ("decode", decode),
+                          ("source", source)):
+            st = srv.engine_stats()
+            free[name] = (st["free_kv_blocks"], st["total_kv_blocks"])
+        bm = prefill.engine.block_manager
+        free["prefill"] = (bm.available(), prefill.engine.runner.num_blocks)
+        if any(a != b for a, b in free.values()):
+            raise AssertionError(f"pages not all free: {free}")
+        out["pages_free"] = free
+        log(f"disagg identity (fp32, 2 layers): greedy tokens through "
+            f"prefill -> wire -> decode equal the single server's and naive "
+            f"forward's ({len(prompts)} prompts); seeded equal; "
+            f"{len(moved)} sessions migrated at token 4 equal unmoved runs; "
+            f"every page free {free}")
+        return out
+    finally:
+        for srv in (single, decode, prefill, source):
+            srv.close()
+
+
+def phase_disagg(torch):
+    from ray_tpu_torch.llm.disagg import PrefillServer
+    from ray_tpu_torch.llm.serving import LLMServer
+
+    config, params = _llama8b(torch)
+    cfg = _engine_config(config)
+    t0 = time.perf_counter()
+    unified = LLMServer(cfg, params=params)
+    decode = LLMServer(cfg, params=params)
+    prefill = PrefillServer(cfg, params=params)
+    graphs = {"unified": len(unified.engine.runner._graphs),
+              "decode": len(decode.engine.runner._graphs),
+              "prefill": len(prefill.engine.runner._graphs)}
+    log(f"disagg: unified server, decode server and prefill tier built and "
+        f"warmed on one copy of the weights in "
+        f"{time.perf_counter() - t0:.1f} s; CUDA graphs {graphs}")
+    if graphs["prefill"]:
+        raise AssertionError(f"the prefill tier captured {graphs['prefill']}"
+                             " graphs")
+    try:
+        res = {"graphs": graphs}
+        res["launches"] = _disagg_launches(
+            torch, prefill, decode, _mix_requests(config, "tier"), config)
+        res["handoff_parts"] = _handoff_parts(torch, decode)
+        turns = []
+        for i, path in enumerate(("unified", "disagg", "disagg",
+                                  "unified")):
+            requests = _mix_requests(config, f"dturn{i}", SEED + 30 + i)
+            if path == "unified":
+                _, numbers = _server_run(torch, unified, requests, config,
+                                         f"unified (turn {i})")
+            else:
+                numbers = _disagg_run(torch, prefill, decode, requests,
+                                      config, f"(turn {i})")
+            turns.append(dict(numbers, path=path))
+        res["turns"] = turns
+        res["migration"] = _migrate_live(
+            torch, unified, decode, _mix_requests(config, "migrate",
+                                                  SEED + 40), config)
+        for name, srv in (("unified", unified), ("decode", decode)):
+            st = srv.engine_stats()
+            if st["free_kv_blocks"] != st["total_kv_blocks"]:
+                raise AssertionError(f"{name}: pages left {st}")
+        RESULTS["disagg"] = res
+    finally:
+        for srv in (unified, decode, prefill):
+            srv.close()
+        del unified, decode, prefill
+        gc.collect()
+        torch.cuda.empty_cache()
+    RESULTS["disagg"]["identity"] = _disagg_identity(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def phase_split(torch):
@@ -3030,7 +3485,9 @@ def kernels_line() -> dict:
     train run for the flash kernels; counts reset to 0 just before each
     run), null when that phase did not run; `launches_tp_per_rank` (K5,
     K6) each rank's count on the tp phase's largest world (the mix for K5,
-    the split identity run for K6). `ms` is eager, host included;
+    the split identity run for K6); `launches_disagg` (K5, K6) each
+    tier's count in the disagg phase, the prefill tier's and the decode
+    server's runs each from 0. `ms` is eager, host included;
     `graph_ms` (K5/K6) the device time alone. `cuda_kernel` names the
     `__global__` functions the bf16 case launches, as profiles show them."""
     rows = RESULTS.get("kernel_cases", [])
@@ -3041,8 +3498,10 @@ def kernels_line() -> dict:
     tp_split = tp.get("identity", {}).get(
         f"split_{max(tp.get('sizes') or [0])}_launches")
 
+    tiers = RESULTS.get("disagg", {}).get("launches")
+
     def entry(kernel, name, cuda_kernel, source, replaces, head_case,
-              launches, launches_tp=None):
+              launches, launches_tp=None, col=None):
         mine = [r for r in rows if r["kernel"] == kernel]
         head = next((r for r in mine if r["case"] == head_case
                      and r["dtype"] == "bfloat16"), {})
@@ -3057,7 +3516,10 @@ def kernels_line() -> dict:
             "bound_ms": head.get("bound_ms"),
             "bound_by": head.get("bound_by"),
             "library_ms": head.get("library_ms"),
-            "launches_tp_per_rank": launches_tp}
+            "launches_tp_per_rank": launches_tp,
+            "launches_disagg": ({"prefill_tier": tiers["prefill"][col],
+                                 "decode_server": tiers["decode"][col]}
+                                if tiers and col is not None else None)}
 
     attn = "ray_tpu/ops/attention.py"
     return {"kernels": [
@@ -3067,14 +3529,15 @@ def kernels_line() -> dict:
               "paged_attention.cu",
               "ray_tpu/ops/paged_attention.py:177", "tick_136",
               RESULTS.get("server", {}).get("k5_launches"),
-              [r[0] for r in tp_top.get("launches_per_rank", [])] or None),
+              [r[0] for r in tp_top.get("launches_per_rank", [])] or None,
+              col=0),
         entry("K6", "ragged_paged_attention",
               "rpa_tile_kernel (+ rpa_merge_kernel when split); fp32: "
               "rpa_kernel",
               "paged_attention.cu",
               "ray_tpu/ops/paged_attention.py:69", "split_decode",
               RESULTS.get("split", {}).get("k6_launches"),
-              [r[1] for r in tp_split] if tp_split else None),
+              [r[1] for r in tp_split] if tp_split else None, col=1),
         entry("flash_fwd", "flash_fwd", "flash_fwd_wgmma_kernel",
               "flash_attention.cu",
               f"{attn}:520 (K1), {attn}:553 (K2)", "train",
@@ -3098,6 +3561,10 @@ def main(argv=None) -> int:
                     "a ray_tpu_torch package: time their bf16 kernels at "
                     + ", ".join(_turn_label(*c) for c in TURN_CASES)
                     + " in this order")
+    ap.add_argument("--turn-legs", default="kernels",
+                    help="with --turns: comma-separated legs, 'kernels' "
+                    "(TURN_CASES) and/or 'server' (the server mix three "
+                    "times and decode walls, each tree in a new process)")
     ap.add_argument("--turn-in", help=argparse.SUPPRESS)
     ap.add_argument("--tp-leg", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -3111,6 +3578,9 @@ def main(argv=None) -> int:
     unknown = set(phases) - set(ALL_PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
+    legs = [x for x in args.turn_legs.split(",") if x]
+    if set(legs) - {"kernels", "server"}:
+        ap.error(f"unknown turn legs {legs}")
 
     import torch
 
@@ -3132,7 +3602,10 @@ def main(argv=None) -> int:
             fn(torch)
         log(f"phase {name}: ok in {time.perf_counter() - t0:.1f} s")
     if args.turn_in:
-        _turn_times(torch)
+        if "kernels" in legs:
+            _turn_times(torch)
+        if "server" in legs:
+            _turn_server(torch)
         return 0
     if args.tp_leg:
         name, leg_args, out = json.loads(args.tp_leg)
@@ -3140,7 +3613,7 @@ def main(argv=None) -> int:
             json.dump(globals()[name](torch, *leg_args), f)
         return 0
     if args.turns:
-        run_turns(args.turns.split(","))
+        run_turns(args.turns.split(","), legs)
     RESULTS["phases"] = phases
     RESULTS["wall_s"] = time.perf_counter() - t_all
     if args.out:

@@ -34,10 +34,16 @@ Port of ray_tpu/llm/engine.py:
     (llm/prefix_store.py), which catches evicted prefix blocks and
     promotes them back at admission; `export_prefixes` / `adopt_prefix`
     move idle prefix blocks.
+  * Prefill-only engines (`prefill_only=True`, the prefill tier of
+    disaggregated serving, llm/disagg.py): chunked prefill on the split
+    path only, never a decode tick and never a unified tick (no unified
+    CUDA graph is captured at warm-up); the caller exports each request
+    after its first token. `request_breakdown` splits a finished
+    request's latency into queue, prefill, handoff, decode and stall.
 
-Prefill-only (disaggregated) engines and the cluster prefix tier need an
-actor runtime the port does not have yet: the engine refuses them with a
-ValueError instead of computing something else.
+The cluster prefix tier needs an actor runtime the port does not have
+yet: the engine refuses it with a ValueError instead of computing
+something else.
 """
 
 from __future__ import annotations
@@ -64,6 +70,8 @@ _PREFIX_CACHE_SALT = os.urandom(16)
 
 # Split decode steps kept in flight (the JAX package's llm_pipeline_depth).
 PIPELINE_DEPTH = 4
+# Finished requests whose request_breakdown the engine keeps.
+BREAKDOWNS_KEPT = 256
 
 
 def _unported(feature: str) -> ValueError:
@@ -370,8 +378,6 @@ class LLMEngine:
                  prefill_only: bool = False,
                  unified_ticks: bool = True,
                  token_budget: Optional[int] = None):
-        if prefill_only:
-            raise _unported("prefill-only (disaggregated) engines")
         self.runner = model_runner
         self.block_size = model_runner.block_size
         self.block_manager = BlockManager(
@@ -413,6 +419,8 @@ class LLMEngine:
         # length headroom, else the single-step program.
         self.multi_step = max(1, int(decode_multi_step))
         self.unified_ticks = bool(unified_ticks)
+        # Prefill tier of disaggregated serving: chunked prefill only.
+        self.prefill_only = bool(prefill_only)
         # Bumped by update_weights.
         self.weights_version = 0
         # Prefill tokens actually run through the model (cache hits and
@@ -446,6 +454,9 @@ class LLMEngine:
         self.flight_records: deque = deque(
             maxlen=int(os.environ.get("RAY_TPU_LLM_FLIGHT_RECORDS", "256")))
         self._tick_note: Dict = {}
+        # request id -> request_breakdown of the newest finished requests
+        # (the port's stand-in for the JAX package's breakdown histograms).
+        self.breakdowns: "OrderedDict[str, Dict[str, float]]" = OrderedDict()
         if model_runner.lora is not None:
             model_runner.lora.listeners.append(self._adapter_loaded)
 
@@ -512,7 +523,7 @@ class LLMEngine:
         else:
             if self.prefilling:
                 outputs.extend(self._prefill_step())
-            if self.running or self._flights:
+            if not self.prefill_only and (self.running or self._flights):
                 outputs.extend(self._decode_tick())
         note = self._tick_note
         if note:
@@ -537,9 +548,11 @@ class LLMEngine:
     def _use_unified(self) -> bool:
         """Route this iteration through the unified mixed launch. Falls back
         to the split phases when a feature needs them: the multi-step
-        decode, requests needing host logits (repetition penalty), or
-        async flights still draining from a split tick."""
-        if not (self.unified_ticks and self.multi_step == 1):
+        decode, prefill-only engines, requests needing host logits
+        (repetition penalty), or async flights still draining from a split
+        tick."""
+        if not (self.unified_ticks and self.multi_step == 1
+                and not self.prefill_only):
             return False
         if self._flights:
             return False
@@ -1013,7 +1026,8 @@ class LLMEngine:
         batch x chunk grid and the host-logits step. A unified engine also
         warms every token bucket of the mixed tick. Returns the number of
         shapes warmed (on the card with graphs, each token bucket of the
-        unified tick is a capture)."""
+        unified tick is a capture). A prefill-only engine never takes the
+        unified tick, so it captures none."""
         r = self.runner
         batch_buckets = sorted({r.batch_bucket(n)
                                 for n in range(1, self.max_batch + 1)})
@@ -1040,7 +1054,8 @@ class LLMEngine:
             if full:
                 r.step(*args)
         warmed = len(combos)
-        if self.unified_ticks and self.multi_step == 1:
+        if (self.unified_ticks and self.multi_step == 1
+                and not self.prefill_only):
             self._check_lora_epoch()
             S = r.batch_bucket(self.max_batch)
             for Tb in token_buckets(self.token_budget):
@@ -1681,9 +1696,37 @@ class LLMEngine:
         done = req.finished_reason is not None
         if done:
             self._unpin_lora(req)
+            bd = self.request_breakdown(req)
+            if bd is not None:
+                self.breakdowns[req.id] = bd
+                while len(self.breakdowns) > BREAKDOWNS_KEPT:
+                    self.breakdowns.popitem(last=False)
         return RequestOutput(
             req.id, req.prompt, list(req.output), done, req.finished_reason,
             self._detok(req.output) if done else None, new_tokens)
+
+    def request_breakdown(self, req: _Request) -> Optional[Dict[str, float]]:
+        """TTFT/ITL decomposition for one request from its lifecycle
+        timestamps: queue_s (submit->admit), prefill_s (admit->first token,
+        minus handoff time), handoff_s (disagg KV streams), decode_s
+        (first->last token, minus stalls), stall_s (migration pauses)."""
+        t = req.timing
+        if t["t_first_token"] is None:
+            return None
+        t_submit = t["t_submit"]
+        t_admit = t["t_admit"] if t["t_admit"] is not None else t_submit
+        t_first = t["t_first_token"]
+        t_last = (t["t_last_token"] if t["t_last_token"] is not None
+                  else t_first)
+        handoff_s = float(t.get("handoff_s") or 0.0)
+        stall_s = float(t.get("pause_s") or 0.0)
+        return {
+            "queue_s": max(0.0, t_admit - t_submit),
+            "prefill_s": max(0.0, t_first - t_admit),
+            "handoff_s": handoff_s,
+            "decode_s": max(0.0, t_last - t_first - handoff_s - stall_s),
+            "stall_s": stall_s,
+        }
 
     def _check_finished(self, req: _Request):
         p = req.params

@@ -27,7 +27,6 @@ writes for its bf16 arrays), and decode back to uint16 arrays.
 from __future__ import annotations
 
 import json
-import struct
 import threading
 from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Tuple
@@ -35,16 +34,10 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ray_tpu_torch.collective.cpu_group import (
+    _AMETA, _HDR, _K_ARRAY, _chunks, _frame_views)
 from ray_tpu_torch.ops import to_numpy
 
-# Frame header and array-chunk header of the JAX package's raw-frame wire
-# (its collective/cpu_group.py): [u64 body length][u8 frame kind][body];
-# an array chunk's body starts with dtype str (NUL-padded), ndim, 8 dims of
-# the FULL array, element offset of the chunk, chunk elements.
-_HDR = struct.Struct("<QB")
-_AMETA = struct.Struct("<16sB8QQQ")
-_MAX_DIMS = 8
-_K_ARRAY = 1
 _K_JSON = 2
 _CHUNK_BYTES = 1 << 20
 
@@ -54,30 +47,6 @@ BF16 = "bfloat16"
 
 class TruncatedSpillError(RuntimeError):
     """A spilled payload buffer ended mid-frame: discard it whole."""
-
-
-def _chunks(off: int, size: int, chunk_elems: int):
-    end = off + size
-    while off < end:
-        n = min(chunk_elems, end - off)
-        yield off, n
-        off += n
-
-
-def _frame_views(chunk: np.ndarray, full_shape=None, offset: int = 0
-                 ) -> List[memoryview]:
-    """The wire views of one raw array chunk: [header + meta, payload].
-    `full_shape` is the shape of the array the chunk belongs to."""
-    shape = tuple(full_shape) if full_shape is not None else tuple(chunk.shape)
-    if len(shape) > _MAX_DIMS:
-        raise ValueError(f"array rank {len(shape)} exceeds wire max "
-                         f"{_MAX_DIMS}")
-    dims = list(shape) + [0] * (_MAX_DIMS - len(shape))
-    meta = _AMETA.pack(chunk.dtype.str.encode().ljust(16, b"\x00"),
-                       len(shape), *dims, offset, chunk.size)
-    payload = memoryview(chunk).cast("B")
-    head = _HDR.pack(_AMETA.size + payload.nbytes, _K_ARRAY) + meta
-    return [memoryview(head), payload]
 
 
 def _host_array(pages) -> Tuple[np.ndarray, Optional[str]]:

@@ -10,13 +10,21 @@ run time (`load_lora_adapter`), and the slot pool may scale itself
 (`host_prefix_mb`). Weights come from `params`, from a manifest-format
 checkpoint (`params_checkpoint`) or from `seed`; `tensor_parallel=N`
 serves them on N cards as rank 0 of a world whose other ranks hold their
-shards (llm/tp.py), and `close()` stops those ranks. The cluster
-deployment, router, disagg tiers, the cluster prefix tier and migration
-are later slices.
+shards (llm/tp.py), and `close()` stops those ranks.
+
+Every server listens for KV handoffs (llm/disagg.py `KVStreamServer`,
+on `LLMConfig.handoff_host`): a prefill tier (`disagg.PrefillServer`)
+streams prefilled requests to it, and a draining peer migrates its live
+sessions to it (`migrate_sessions`) or pushes its hot prefixes
+(`push_prefixes`). The wire is one TCP connection per request, so none
+of this needs an actor runtime; the cluster deployment around the
+server (the router deployment, replica actors, the cluster prefix tier)
+does, and is a later slice.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import queue
@@ -27,9 +35,11 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from ray_tpu_torch.llm.engine import _unported
+from ray_tpu_torch.llm.disagg import (KVStreamServer, _completion_response,
+                                      migrate_session, send_handoff)
 from ray_tpu_torch.llm.sampling import SamplingParams
 from ray_tpu_torch.ops import resolve_device
+from ray_tpu_torch.util import tracing
 
 log = logging.getLogger(__name__)
 
@@ -37,6 +47,34 @@ log = logging.getLogger(__name__)
 class RequestTimeoutError(TimeoutError):
     """No engine output arrived within LLMConfig.stream_timeout_s. The
     request has been aborted and its KV pages released."""
+
+
+class ReplicaDrainingError(RuntimeError):
+    """This server has stopped admitting (its sessions are being migrated
+    out). The request was NOT submitted; route it to a healthy server.
+    The message embeds "REPLICA_DRAINING" so routers can classify it
+    across boundaries that re-wrap exception types."""
+
+    def __init__(self, tag: str = ""):
+        super().__init__(f"REPLICA_DRAINING {tag}: replica is draining; "
+                         "resubmit on a healthy replica")
+
+
+class SessionMigratedError(RuntimeError):
+    """The server exported this in-flight request to another server while
+    a consumer was collecting it.
+
+    mode "kv": the adopting server already holds the live stream; the
+    consumer re-collects there with completions_collect(request_id), zero
+    re-prefill. mode "replay": re-submit the same request (same
+    request_id) anywhere healthy; seeded sampling reproduces the same
+    tokens from the prompt. The message embeds
+    "SESSION_MIGRATED <mode> <rid>" so routers can classify the error."""
+
+    def __init__(self, rid: str, mode: str):
+        super().__init__(f"SESSION_MIGRATED {mode} {rid}")
+        self.rid = rid
+        self.mode = mode
 
 
 @dataclasses.dataclass
@@ -80,6 +118,8 @@ class LLMConfig:
     host_prefix_mb: float = 32.0
     host_prefix_low_watermark: float = 0.8
     cluster_prefix_store: bool = True
+    # Address the server's KV stream listener binds (llm/disagg.py).
+    handoff_host: str = "127.0.0.1"
     device: Any = "cuda"
 
 
@@ -134,8 +174,20 @@ def _runner(llm_config: LLMConfig, config, device, params, cuda_graphs):
                        cuda_graphs=cuda_graphs, lora_manager=lora_manager)
 
 
+def _cuda_scope(device: torch.device):
+    """A factory of contexts that make `device` the calling thread's
+    current CUDA device (the current device is per thread); a no-op off
+    CUDA."""
+    if device.type != "cuda":
+        return contextlib.nullcontext
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    return lambda: torch.cuda.device(index)
+
+
 def build_engine(llm_config: LLMConfig, params: Optional[Dict] = None,
-                 cuda_graphs: Optional[bool] = None):
+                 cuda_graphs: Optional[bool] = None,
+                 prefill_only: bool = False):
     """Construct an LLMEngine per config on llm_config.device (raises
     without CUDA unless device="cpu"), warmed per
     llm_config.warmup_buckets. `params` (the port's parameter dict)
@@ -145,7 +197,8 @@ def build_engine(llm_config: LLMConfig, params: Optional[Dict] = None,
     token bucket) on the card, False runs the step eagerly there (to
     compare the two). With tensor_parallel > 1 the engine's runner is
     rank 0 of a new world of that many ranks: `engine.runner.close()`
-    stops them."""
+    stops them. `prefill_only` builds the prefill tier's engine
+    (llm/disagg.py), which captures no unified-tick graph."""
     from ray_tpu_torch.llm.engine import LLMEngine
     from ray_tpu_torch.models import llama
 
@@ -166,7 +219,8 @@ def build_engine(llm_config: LLMConfig, params: Optional[Dict] = None,
             speculative_ngram=llm_config.speculative_ngram,
             decode_multi_step=llm_config.decode_multi_step,
             unified_ticks=llm_config.unified_ticks,
-            token_budget=llm_config.token_budget)
+            token_budget=llm_config.token_budget,
+            prefill_only=prefill_only)
         if warm != "off":
             engine.warmup(full=warm == "full")
     except BaseException:
@@ -175,33 +229,15 @@ def build_engine(llm_config: LLMConfig, params: Optional[Dict] = None,
     return engine
 
 
-def _completion_response(out) -> Dict:
-    """OpenAI-ish completion body from a finished RequestOutput."""
-    return {
-        "id": out.request_id,
-        "object": "text_completion",
-        "choices": [{
-            "text": out.text,
-            "token_ids": out.output_token_ids,
-            "finish_reason": out.finish_reason,
-        }],
-        "usage": {
-            "prompt_tokens": len(out.prompt_token_ids),
-            "completion_tokens": len(out.output_token_ids),
-        },
-    }
-
-
 class LLMServer:
-    """Owns one engine and its step loop thread; `close()` stops it."""
+    """Owns one engine, its step loop thread and its KV stream listener;
+    `close()` stops them."""
 
     def __init__(self, llm_config: LLMConfig, params: Optional[Dict] = None,
                  cuda_graphs: Optional[bool] = None):
         self.engine = build_engine(llm_config, params, cuda_graphs)
-        dev = self.engine.runner.device
-        self._cuda_index = (None if dev.type != "cuda" else dev.index
-                            if dev.index is not None
-                            else torch.cuda.current_device())
+        self._scope = _cuda_scope(self.engine.runner.device)
+        self._replica_tag = uuid.uuid4().hex[:6]
         self.config = llm_config
         self.tokenizer = llm_config.tokenizer
         self._timeout_s = llm_config.stream_timeout_s
@@ -224,15 +260,25 @@ class LLMServer:
         self._policy_t0 = time.monotonic()
         # request_id -> per-request queue; the loop fans outputs out here.
         self._streams: Dict[str, queue.Queue] = {}
+        # KV stream listener, always on: prefill servers stream populated
+        # pages here, and draining peers migrate live sessions here (under
+        # tensor parallelism this rank-0 server holds it).
+        self._handoff = KVStreamServer(self._adopt_handoff,
+                                       host=llm_config.handoff_host)
+        # Set while this server's sessions are moved out: new submissions
+        # raise ReplicaDrainingError until resume_admission.
+        self._draining = False
+        self._sessions_migrated_out = 0
         self._stop = threading.Event()
         self._loop = threading.Thread(
             target=self._engine_loop, daemon=True,
-            name=f"llm-engine-{uuid.uuid4().hex[:6]}")
+            name=f"llm-engine-{self._replica_tag}")
         self._loop.start()
 
     def close(self, timeout: float = 10.0) -> None:
-        """Stop the engine loop, then the other ranks of a tensor-parallel
-        world (none is left behind)."""
+        """Stop the listener and the engine loop, then the other ranks of
+        a tensor-parallel world (none is left behind)."""
+        self._handoff.close()
         self._stop.set()
         self._loop.join(timeout)
         self.engine.runner.close()
@@ -246,10 +292,10 @@ class LLMServer:
     # ---- engine loop -----------------------------------------------------
 
     def _engine_loop(self):
-        # The current CUDA device is per thread: the loop takes the one
-        # the server was built on.
-        if self._cuda_index is not None:
-            torch.cuda.set_device(self._cuda_index)
+        with self._scope():
+            self._run_loop()
+
+    def _run_loop(self):
         while not self._stop.is_set():
             now = time.monotonic()
             if self._lora_policy is not None and now - self._policy_t0 >= 1:
@@ -303,21 +349,13 @@ class LLMServer:
         mgr = self.engine.runner.lora
         return {"adapters": mgr.loaded if mgr is not None else []}
 
-    def completions_collect(self, request_id: str) -> Dict:
-        """The decode side of disaggregated serving: needs the KV stream
-        wire between replicas (an actor runtime), a later slice."""
-        raise _unported("disaggregated serving (completions_collect)")
-
-    def migrate_sessions(self, *args, **kwargs) -> Dict:
-        """Live session migration to another replica: needs the KV stream
-        wire between replicas (an actor runtime), a later slice."""
-        raise _unported("live session migration (migrate_sessions)")
-
     def _submit(self, prompt, params, request_id: Optional[str],
                 lora_name: Optional[str] = None) -> str:
         # A caller-assigned id seeds sampling (crc32 of the id when no
         # explicit seed is set): a replay under the same id redraws the
         # same tokens.
+        if self._draining:
+            raise ReplicaDrainingError(self._replica_tag)
         rid = request_id or uuid.uuid4().hex[:12]
         q: queue.Queue = queue.Queue()
         self._streams[rid] = q
@@ -367,8 +405,17 @@ class LLMServer:
         return aborted
 
     def engine_stats(self) -> Dict:
+        """The engine's load signal (what RouterCore and ReplicaPolicy
+        read), with the server's drain and handoff counts."""
         with self._lock:
-            return self.engine.stats()
+            s = self.engine.stats()
+        s["replica"] = self._replica_tag
+        s["draining"] = self._draining
+        s["sessions_migrated_out"] = self._sessions_migrated_out
+        s["handoff_address"] = list(self._handoff.address)
+        s["handoffs_adopted"] = self._handoff.handoffs_adopted
+        s["handoffs_rejected"] = self._handoff.handoffs_rejected
+        return s
 
     def flight_records(self, limit: Optional[int] = None,
                        request_id: Optional[str] = None) -> List[Dict]:
@@ -380,6 +427,138 @@ class LLMServer:
             return self.engine.tick_records(limit=limit,
                                             request_id=request_id)
 
+    # ---- KV handoff and live migration (llm/disagg.py wire) -------------
+
+    def handoff_address(self) -> List:
+        return list(self._handoff.address)
+
+    def resume_admission(self) -> None:
+        """Cancel a drain: admit again. Sessions already migrated out stay
+        migrated (their KV lives on the adopting server now)."""
+        self._draining = False
+
+    def migrate_sessions(self, target_address, *,
+                         timeout: float = 60.0) -> Dict:
+        """Live migration: stop admitting, then move every live request to
+        `target_address` (another server's KV stream listener).
+
+        Decoding requests travel with their KV pages over the raw-frame
+        wire, whole-stream-or-discard, so a target dying mid-adopt leaves
+        nothing torn and the request falls back to seeded replay from the
+        prompt. Requests still queued or mid-prefill always take the
+        replay path. The in-flight split-path steps are harvested first
+        (`drain_flights`): their tokens commit, requests that finish there
+        complete normally (never delivered twice), and no device write
+        can land in an exported page; the gather then runs on this
+        thread's current stream, the one the unified tick's replays run
+        on, after them. Consumers blocked in completions or
+        completions_collect get a SessionMigratedError naming the mode,
+        so they re-collect on the target (kv) or re-submit (replay).
+        Returns per-mode rid lists."""
+        self._draining = True
+        migrated: List[str] = []
+        replayed: List[str] = []
+        finished: List[str] = []
+        exports: List[tuple] = []
+        with self._lock, self._scope():
+            for out in self.engine.drain_flights():
+                q = self._streams.get(out.request_id)
+                if q is not None:
+                    q.put(out)
+                if out.finished:
+                    finished.append(out.request_id)
+            live = ([r.id for r in self.engine.running]
+                    + [r.id for r in self.engine.prefilling]
+                    + [r.id for r in self.engine.waiting])
+            for rid in live:
+                state, mode = self.engine.export_session(rid)
+                if state is None:
+                    continue
+                if mode == "kv":
+                    blocks = state.pop("blocks")
+                    k, v = self.engine.runner.gather_pages(blocks)
+                    self.engine.block_manager.release_blocks(blocks)
+                    exports.append((rid, state, k, v))
+                else:
+                    replayed.append(rid)
+        # Stream outside the lock: socket time must never hold the engine.
+        send_failed: List[str] = []
+        kv_dtype = self.engine.runner.kv_dtype_name
+        for rid, state, k, v in exports:
+            # The pause runs from the export (decode stopped for this
+            # request then) to the target's ack.
+            t_pause0 = (state.get("timing") or {}).get("t_handoff",
+                                                       time.time())
+            try:
+                with tracing.trace_context(tracing.request_trace_id(rid),
+                                           None):
+                    migrate_session(target_address, state, k, v,
+                                    kv_dtype=kv_dtype, timeout=timeout)
+                migrated.append(rid)
+                self.engine.flight_records.append({
+                    "t": t_pause0, "kind": "migration_pause",
+                    "dur_ms": round((time.time() - t_pause0) * 1e3, 3),
+                    "emitted": {}, "request_id": rid})
+            except Exception:
+                # Nothing is half-adopted; but a timeout with a LOST ack may
+                # leave the session adopted on the target while it replays
+                # here: reported, so the caller can abort it there.
+                send_failed.append(rid)
+                replayed.append(rid)
+        for rid in migrated:
+            q = self._streams.get(rid)
+            if q is not None:
+                q.put(SessionMigratedError(rid, "kv"))
+        for rid in replayed:
+            q = self._streams.get(rid)
+            if q is not None:
+                q.put(SessionMigratedError(rid, "replay"))
+        self._sessions_migrated_out += len(migrated)
+        return {"migrated": migrated, "replayed": replayed,
+                "send_failed": send_failed, "finished": finished,
+                "replica": self._replica_tag}
+
+    def push_prefixes(self, target_address, *, limit: int = 16,
+                      timeout: float = 60.0) -> Dict:
+        """Stream the hottest reusable prefix pages (parked device blocks
+        first, then the host tier) to `target_address`, another server's
+        KV stream listener, so a drain's successor starts warm. A failed
+        send costs nothing (the pages were spill candidates anyway)."""
+        with self._lock, self._scope():
+            export = self.engine.export_prefixes(limit=limit)
+        if export is None:
+            return {"pushed": 0, "replica": self._replica_tag}
+        state, k, v = export
+        try:
+            send_handoff(target_address, state, k, v,
+                         kv_dtype=self.engine.runner.kv_dtype_name,
+                         timeout=timeout)
+        except Exception:
+            return {"pushed": 0, "replica": self._replica_tag,
+                    "error": "send_failed"}
+        return {"pushed": len(state["entries"]),
+                "replica": self._replica_tag}
+
+    def _adopt_handoff(self, state: Dict, k_pages, v_pages) -> bool:
+        """The listener's adopt function, on its connection thread, under
+        the engine lock: the pages are scattered on this thread's current
+        stream, the one the unified tick's replays run on, so the next
+        replay reads them; nothing is captured."""
+        if state.get("prefix"):
+            # A prefix push: cached pages, no live session, no consumer.
+            with self._lock, self._scope():
+                return self.engine.adopt_prefix(state, k_pages, v_pages) > 0
+        # The stream queue exists BEFORE the request can decode (the loop
+        # drops outputs with no queue), and the ack goes back only after
+        # adopt_request returns, so completions_collect finds both.
+        rid = state["id"]
+        self._streams[rid] = queue.Queue()
+        with self._lock, self._scope():
+            ok = self.engine.adopt_request(state, k_pages, v_pages)
+        if not ok:
+            self._streams.pop(rid, None)
+        return ok
+
     # ---- API -------------------------------------------------------------
 
     def completions(self, request: Dict) -> Dict:
@@ -388,6 +567,27 @@ class LLMServer:
         "repetition_penalty", "seed", "request_id", "lora_name"}."""
         prompt, params, rid, lora_name = self._parse(request)
         rid = self._submit(prompt, params, rid, lora_name)
+        return self._collect(rid)
+
+    def completions_collect(self, request_id: str) -> Dict:
+        """Wait out a request this server adopted (a prefill tier's
+        handoff, or a migrated session) and return its completion."""
+        self._known(request_id)
+        return self._collect(request_id)
+
+    def completions_collect_stream(self, request_id: str):
+        """completions_collect as completions_stream's events: one per
+        token decoded here after the adoption, then the final event with
+        every token (those decoded before the handoff included)."""
+        self._known(request_id)
+        return self._events(request_id)
+
+    def _known(self, request_id: str) -> None:
+        if request_id not in self._streams:
+            raise KeyError(f"unknown request {request_id!r} "
+                           "(handoff not adopted here?)")
+
+    def _collect(self, rid: str) -> Dict:
         q = self._streams[rid]
         try:
             while True:
@@ -402,6 +602,9 @@ class LLMServer:
         one per sampled token, then a final event with the whole output."""
         prompt, params, rid, lora_name = self._parse(request)
         rid = self._submit(prompt, params, rid, lora_name)
+        return self._events(rid)
+
+    def _events(self, rid: str):
         q = self._streams[rid]
         finished = False
         try:

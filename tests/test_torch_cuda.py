@@ -751,3 +751,73 @@ def test_mesh_of_one_step_matches_single_card_step(cuda, tmp_path):
             assert abs(lm - ls) <= 1e-6 * abs(ls)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_handoff_and_migration_on_card(cuda, dtype):
+    """A prefill-only engine (K6, no graph) hands a request to a graphed
+    decode server over localhost: the adopt's scatter, made on the
+    listener's thread, is seen by the next replay (fp32: the tokens equal
+    a single unified server's; bf16, whose split-path prefill rounds
+    otherwise: a second handoff gives the same tokens) and captures
+    nothing; a session migrated mid-decode off the decode server gives
+    the unmoved run's tokens on a third server."""
+    from ray_tpu_torch.llm.disagg import PrefillServer
+    from ray_tpu_torch.llm.serving import LLMConfig, LLMServer
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    config = llama.LlamaConfig.tiny(d_model=256, n_heads=4, n_kv_heads=2,
+                                    max_seq=512, dtype=dtype)
+    params = llama.init_params(config, torch.Generator(
+        device=cuda).manual_seed(3), cuda)
+    cfg = LLMConfig(model_config=config, block_size=16, num_kv_blocks=64,
+                    max_batch_size=4, prefill_chunk=32, device=cuda)
+    single = LLMServer(cfg, params=params)
+    decode = LLMServer(cfg, params=params)
+    target = LLMServer(cfg, params=params)
+    prefill = PrefillServer(cfg, params=params)
+    try:
+        assert not prefill.engine.runner._graphs
+        req = {"prompt": [(5 * i + 1) % 256 for i in range(70)],
+               "max_tokens": 12, "request_id": "card-1"}
+        want = single.completions(dict(req))["choices"][0]["token_ids"]
+        compiles = decode.engine_stats()["step_compiles"]
+        pa.ragged_paged_attention.launches = 0
+        pa.ragged_paged_attention_unified.launches = 0
+        res = prefill.prefill(dict(req), decode.handoff_address())
+        k6 = pa.ragged_paged_attention.launches
+        got = decode.completions_collect(res["rid"])["choices"][0][
+            "token_ids"]
+        if dtype == torch.float32:
+            assert got == want
+        again = prefill.prefill(dict(req), decode.handoff_address())
+        assert decode.completions_collect(again["rid"])["choices"][0][
+            "token_ids"] == got
+        assert k6 >= config.n_layers
+        assert pa.ragged_paged_attention_unified.launches >= config.n_layers
+        assert decode.engine_stats()["step_compiles"] == compiles
+        # Migration: decode steps on the source's replays, the gather on
+        # the same stream after them.
+        long = dict(req, max_tokens=200, request_id="card-2")
+        want = single.completions(dict(long))["choices"][0]["token_ids"]
+        import threading
+        import time
+
+        box = {}
+        th = threading.Thread(target=lambda: box.update(
+            err=pytest.raises(RuntimeError, decode.completions, dict(long))))
+        th.start()
+        while True:
+            with decode._lock:
+                if any(len(r.output) >= 8 for r in decode.engine.running):
+                    break
+            time.sleep(0.001)
+        res = decode.migrate_sessions(target.handoff_address())
+        th.join(60)
+        assert res["migrated"] == ["card-2"]
+        assert target.completions_collect("card-2")["choices"][0][
+            "token_ids"] == want
+    finally:
+        for srv in (single, decode, target, prefill):
+            srv.close()

@@ -205,20 +205,20 @@ def test_sampling_frequencies_match_filtered_softmax():
 
 
 def test_engine_refuses_unported_features(weights):
-    """What stays refused: prefill-only engines, the cluster prefix tier
-    and the disaggregated wire (completions_collect, migrate_sessions).
-    The split path, multi-step decode, speculation (unified and split),
-    repetition penalty, LoRA and weight updates run."""
+    """What stays refused: the cluster prefix tier. The split path,
+    multi-step decode, speculation (unified and split), repetition
+    penalty, LoRA, weight updates and prefill-only engines run; the
+    disaggregated wire's parity tests are tests/test_torch_disagg.py and
+    tests/test_torch_migration.py."""
     from ray_tpu_torch.llm.serving import LLMConfig, LLMServer
 
     _, _, tconfig, tparams = weights
-    with pytest.raises(ValueError, match="not ported"):
-        _port_engine(tconfig, tparams, prefill_only=True)
     for kw in ({"unified_ticks": False}, {"decode_multi_step": 4},
                {"speculative_ngram": 2},
                {"speculative_ngram": 2, "unified_ticks": True},
                {"speculative_ngram": 2, "unified_ticks": False},
-               {"speculative_ngram": 2, "decode_multi_step": 4}):
+               {"speculative_ngram": 2, "decode_multi_step": 4},
+               {"prefill_only": True}):
         _port_engine(tconfig, tparams, **kw)
     eng = _port_engine(tconfig, tparams)
     with pytest.raises(ValueError, match="not ported"):
@@ -232,10 +232,9 @@ def test_engine_refuses_unported_features(weights):
     cfg = LLMConfig(model_config=tconfig, num_kv_blocks=16, block_size=8,
                     device="cpu", warmup_buckets="off")
     with LLMServer(cfg, params=tparams) as server:
-        with pytest.raises(ValueError, match="not ported"):
+        # Collecting a request this server never adopted is an error.
+        with pytest.raises(KeyError, match="not adopted"):
             server.completions_collect("r")
-        with pytest.raises(ValueError, match="not ported"):
-            server.migrate_sessions([])
 
 
 def test_llm_server_round_trip(weights):

@@ -81,8 +81,12 @@ def test_entry_points_raise_without_cuda():
 def test_train_modules_are_covered_and_refuse_a_missing_card():
     names = [name for name, _ in _modules()]
     assert {"ray_tpu_torch.train.optim", "ray_tpu_torch.train.step",
-            "ray_tpu_torch.llm.lora", "ray_tpu_torch.llm.prefix_store"} <= \
-        set(names)
+            "ray_tpu_torch.llm.lora", "ray_tpu_torch.llm.prefix_store",
+            "ray_tpu_torch.llm.disagg", "ray_tpu_torch.llm.router",
+            "ray_tpu_torch.llm.replica_policy",
+            "ray_tpu_torch.collective.cpu_group",
+            "ray_tpu_torch.runtime.wire", "ray_tpu_torch.runtime.chaos",
+            "ray_tpu_torch.util.tracing"} <= set(names)
     if torch.cuda.is_available():
         pytest.skip("CUDA present: the default device is valid here")
     from ray_tpu_torch.models import llama
