@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases device,build,disagg
     python3 chip_smoke.py --phases device,build,mesh
     python3 chip_smoke.py --phases device,build,checkpoint,tp   # 2-4 cards
+    python3 chip_smoke.py --phases device,build,pipeline,rlhf,resnet
     python3 chip_smoke.py --phases device --turns parent,.,.,parent
     python3 chip_smoke.py --phases device --turns a,b,b,a --turn-legs server
 
@@ -127,8 +128,41 @@ Phases, in order; any failure raises and the exit code is non-zero:
                long-context point (seq 16384, batch 1, "flash" remat: 14
                flash_fwd launches per step) and an fp32 identity check (2
                layers, batch 2 x 512: loss and every gradient with flash
-               attention equal those with the reference).
- 11. mesh      in-program parallelism (ray_tpu_torch.parallel) on a
+               attention equal those with the reference). The profiled
+               step's device time is split by the record_function ranges
+               of models/llama.py and train/step.py (attention, mlp, norm,
+               loss, optimizer; backward kernels follow their forward op),
+               each range with its elementwise and copy share.
+ 11. pipeline  LocalPipeline (parallel/pipeline.py): (a) fp32 at the bench
+               widths, 4 layers, batch 4 x 128, 3 AdamW steps, 2 stages and
+               2 x interleave 2 on cuda:0 and the last card against
+               train/step.py on one card (losses within 1e-4 relative,
+               parameters within lr elementwise and 1e-3 by norm of their
+               movement); (b) the bench cell in bf16, all 14 layers, batch
+               8 x 2048 in 8 microbatches, stages on min(4, cards) cards (2
+               on cuda:0 on one card), plain 1F1B and interleave 2 in turns
+               with the one-card bench step on the same tokens: step ms,
+               tokens/s, each card's busy share of a profiled step against
+               the bubble, peak memory per card, bytes between cards, flash
+               launches a step (K1 = (L - L_last)·m + L·m, K3 = L·m,
+               asserted), device time by sub-layer range; (c) with 2+
+               cards, K1, K3 dQ and K3 dK/dV launched on the last card
+               while cuda:0 is current, against their plain versions.
+ 12. rlhf      the colocated RLHF loop on the port's engine: (a) fp32 at
+               the bench widths, 2 layers: greedy rollouts equal the naive
+               forward, and after one LearnerWorker.update and
+               colocated_hot_swap the engine's greedy tokens equal the
+               learner's; (b) all 14 layers, fp32, three iterations of a
+               RolloutCoordinator round of 8 prompts (4 greedy, 4 at
+               temperature 0.8 seeded; 32 new tokens), an update and a
+               swap: rollout s and tok/s, update s and its flash launches
+               (asserted), sync ms, K5 launches (graph replays),
+               step_compiles unchanged across each swap, the ledger (every
+               seq_no once, no duplicate).
+ 13. resnet    resnet50 at CIFAR-10 shapes (width 64), batch 128, fp32 and
+               bf16, AdamW on one seeded batch: step ms, images/s, peak
+               memory; over 20 steps the loss falls.
+ 14. mesh      in-program parallelism (ray_tpu_torch.parallel) on a
                one-rank NCCL group: (a) fsdp.build_train_step on a mesh of
                one rank against train/step.py on the same weights (the
                bench configuration, 3 warm-up steps each, then 3 steps
@@ -158,7 +192,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
                movement within 1e-3 by norm and every element within one
                step's movement, lr); it prints its number of ranks either
                way.
- 12. checkpoint sharded checkpoints in the ray-tpu-ckpt-v1 format: the
+ 15. checkpoint sharded checkpoints in the ray-tpu-ckpt-v1 format: the
                bench cell's train state (bf16) after 2 steps saved at
                world 1 (save_sharded) and world 2 (CheckpointPlane async
                saves), restored, and one more step: its loss equals the
@@ -166,7 +200,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
                a 2-layer full-width Llama-3-8B fp32 server loaded through
                LLMConfig.params_checkpoint gives the greedy tokens of the
                server built from memory and of naive llama.forward.
- 13. tp        tensor-parallel serving, with 2 or more cards (it logs that
+ 16. tp        tensor-parallel serving, with 2 or more cards (it logs that
                it did not run on one): fp32 2-layer full-width Llama-3-8B
                greedy tokens at tp = 4 (or 2) equal one card's on the
                unified, speculative and split servers; the bf16 Llama-3-8B
@@ -219,8 +253,8 @@ import time
 import zlib
 
 ALL_PHASES = ("device", "build", "kernel", "server", "lora", "pages",
-              "disagg", "split", "identity", "train", "mesh", "checkpoint",
-              "tp")
+              "disagg", "split", "identity", "train", "pipeline", "rlhf",
+              "resnet", "mesh", "checkpoint", "tp")
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12,     # dense bf16 tensor-core rate
             "float32": 67e12}       # fp32 outside the tensor cores
@@ -2432,10 +2466,11 @@ def _train_run(torch, config, batch, n_warm, n_timed, per_step=None):
     return out, (step, state, tokens)
 
 
-def _profile_train_step(torch, step, state, tokens, step_ms):
+def _profile_train_step(torch, step, state, tokens, step_ms,
+                        label="train step"):
     """One step under torch.profiler: device-busy share of the timed
     step's wall, each flash kernel's and the GEMMs' share of device
-    time, the top kernels."""
+    time, the top kernels, the device time by sub-layer range."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2444,9 +2479,11 @@ def _profile_train_step(torch, step, state, tokens, step_ms):
                              ProfilerActivity.CUDA]) as prof:
         step(state, tokens)
         torch.cuda.synchronize()
+    # The ranges' own device-side annotations are no kernels.
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0]
+               and e.self_device_time_total > 0
+               and e.key not in SUBLAYER_RANGES]
     total_us = sum(e.self_device_time_total for e in kernels)
 
     def share(pred):
@@ -2465,14 +2502,90 @@ def _profile_train_step(torch, step, state, tokens, step_ms):
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
     top = [(e.key[:70], round(e.self_device_time_total / 1e3, 3), e.count)
            for e in top]
-    log(f"train step profile: device busy {device_ms:.2f} ms = "
+    log(f"{label} profile: device busy {device_ms:.2f} ms = "
         f"{device_ms / step_ms:.1%} of the {step_ms:.2f} ms step; shares of "
         "device time: " + ", ".join(f"{k} {v:.1%}" for k, v in
                                     shares.items()))
     for name, ms, n in top:
         log(f"  kernel {ms:.3f} ms/step x{n}: {name}")
+    ranges = _range_split(prof)
+    _log_ranges(label, ranges)
     return dict(device_ms=device_ms, busy_share=device_ms / step_ms,
-                shares=shares, top=top)
+                shares=shares, top=top, ranges=ranges)
+
+
+# Ranges of `torch.profiler.record_function` the port's train path opens
+# (models/llama.py, train/step.py, parallel/pipeline.py).
+SUBLAYER_RANGES = ("attention", "mlp", "norm", "loss", "optimizer")
+
+
+def _kernel_class(name):
+    if "flash" in name:
+        return "flash"
+    if any(s in name.lower() for s in ("gemm", "nvjet", "cutlass", "xmma",
+                                       "cublas")):
+        return "gemm"
+    if "elementwise" in name or "copy" in name:
+        return "elementwise_copy"
+    return "reduce" if "reduce" in name else "other"
+
+
+def _range_split(prof, amounts=None):
+    """Device ms of a profiled run by sub-layer range and kernel class:
+    {range: {class: ms}}. A kernel belongs to the range its launching op
+    ran in (a checkpointed layer's recompute opens its ranges again); an
+    op of the backward pass, under an autograd engine node, to the range
+    of the forward op whose thread and sequence number the node carries;
+    the rest (embedding, the engine's accumulations) to "other".
+    `amounts(event)` gives an event's (kernel name, us) pairs: its
+    kernels by default."""
+    from torch.autograd import DeviceType
+
+    amounts = amounts or (lambda e: [(k.name, k.duration) for k in e.kernels
+                                     if k.name not in SUBLAYER_RANGES])
+    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+
+    def up(e, pred):
+        while e is not None and not pred(e):
+            e = e.cpu_parent
+        return e
+
+    def named(e):
+        r = up(e, lambda x: x.name in SUBLAYER_RANGES)
+        return None if r is None else r.name
+
+    forward = {}
+    for e in events:
+        r = named(e)
+        if r is not None and e.sequence_nr >= 0:
+            forward.setdefault((e.thread, e.sequence_nr), r)
+    out: dict = {}
+    for e in events:
+        got = amounts(e)
+        if not got:
+            continue
+        r = named(e)
+        if r is None:
+            node = up(e, lambda x: x.name.startswith(
+                "autograd::engine::evaluate_function"))
+            if node is not None:
+                r = forward.get((node.fwd_thread, node.sequence_nr))
+        by = out.setdefault(r or "other", {})
+        for name, us in got:
+            c = _kernel_class(name)
+            by[c] = by.get(c, 0.0) + us / 1e3
+    return out
+
+
+def _log_ranges(label, ranges):
+    total = sum(sum(by.values()) for by in ranges.values()) or 1e-9
+    for r, by in sorted(ranges.items(), key=lambda kv: -sum(kv[1].values())):
+        ms = sum(by.values())
+        ew = by.get("elementwise_copy", 0.0)
+        log(f"  {label} range {r}: {ms:.3f} ms ({ms / total:.1%} of device "
+            f"time), elementwise+copy {ew:.3f} ms ({ew / max(ms, 1e-9):.1%} "
+            "of the range); " + ", ".join(f"{c} {v:.3f}" for c, v in
+                                         sorted(by.items())))
 
 
 def _train_identity(torch):
@@ -2549,6 +2662,537 @@ def phase_train(torch):
     RESULTS["train"] = dict(bench=bench, reference=yardstick,
                             long_context=long_ctx,
                             identity=_train_identity(torch))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- pipeline
+
+PIPE_MICROBATCHES = 8
+PIPE_BATCH = 8                  # sequences of 2048 tokens, 1 a microbatch
+
+
+def _pipe_counts(config, n_chunks, m):
+    """Flash launches a pipeline step makes without remat: the forward
+    kernel once per layer and microbatch in `fwd` (every chunk but the
+    last) and again in each `bwd`'s re-run; dQ and dK/dV once in `bwd`."""
+    from ray_tpu_torch.parallel.pipeline import stage_layer_ranges
+
+    L = config.n_layers
+    lo, hi = stage_layer_ranges(L, n_chunks)[-1]
+    return {"flash_fwd": (L - (hi - lo)) * m + L * m,
+            "flash_bwd_dq": L * m, "flash_bwd_dkv": L * m}
+
+
+def _pipe_identity(torch):
+    """(a) fp32 at the bench widths, 4 layers, batch 4 x 128, 3 AdamW
+    steps: 2 stages, and 2 x interleave 2, on cuda:0 and the last card,
+    against train/step.py on cuda:0 from the same weights. Losses within
+    GRAD_TOLERANCE relative; the merged parameters' movement within 1e-3
+    by norm of one card's and every element within 2·lr (elements whose
+    gradient is near Adam's eps move as the order of fp32 sums decides:
+    1.01e-4 at lr 1e-4 after 3 steps on an H100; a chunk that skipped an
+    update moves a third less by norm)."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel.pipeline import LocalPipeline
+    from ray_tpu_torch.train.optim import adamw, leaves
+    from ray_tpu_torch.train.step import make_step
+
+    lr, m = 1e-4, 4
+    tol = GRAD_TOLERANCE["float32"]
+    config = _bench_train_config(torch, n_layers=4, max_seq=128, remat=False,
+                                 dtype=torch.float32)
+    devices = ["cuda:0", f"cuda:{torch.cuda.device_count() - 1}"]
+    params = llama.init_params(config, torch.Generator(
+        device="cuda").manual_seed(SEED + 30))
+    tokens = torch.randint(0, config.vocab_size, (4, 129), device="cuda",
+                           generator=torch.Generator(
+                               device="cuda").manual_seed(SEED + 31))
+    start = [t.clone() for _, t in leaves(params)]
+    pipes = {v: LocalPipeline(config, params, 2, adamw(lr), devices=devices,
+                              interleave=v) for v in (1, 2)}
+    opt = adamw(lr)
+    for _, p in leaves(params):
+        p.requires_grad_(True)
+    state = {"params": params, "opt": opt.init(params)}
+    step = make_step(config, opt)
+    want = [step(state, tokens)[1].item() for _ in range(3)]
+    out = {"one_card_losses": want, "devices": devices}
+    for v, pipe in pipes.items():
+        _reset_flash()
+        got = [pipe.train_step(tokens, m)["loss"] for _ in range(3)]
+        launches = {k: n // 3 for k, n in _flash_counts().items()}
+        if launches != _pipe_counts(config, 2 * v, m):
+            raise AssertionError(f"pipeline (a) 2x{v}: flash launches a "
+                                 f"step {launches}")
+        merged = pipe.merged_params("cuda:0")
+        loss_err = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+        elem = max((a - b).abs().max().item() for (_, a), (_, b) in zip(
+            leaves(merged), leaves(state["params"])))
+        move = torch.cat([(a - s).flatten() for (_, a), s in zip(
+            leaves(merged), start)])
+        ref_move = torch.cat([(b.detach() - s).flatten() for (_, b), s in
+                              zip(leaves(state["params"]), start)])
+        move_err = _norm_err(move, ref_move)
+        log(f"pipeline (a) 2 stages x interleave {v} on {devices}, fp32 "
+            f"bench widths, 4 layers, batch 4 x 128: losses {got} vs one "
+            f"card {want} (worst {loss_err:.2e}, tol {tol}); parameters "
+            f"after 3 steps within {elem:.2e} (tol 2 lr {2 * lr}), "
+            f"movement within {move_err:.2e} by norm (tol 1e-3); flash "
+            f"launches a step {launches}")
+        if loss_err > tol or elem > 2 * lr or move_err > 1e-3:
+            raise AssertionError(f"pipeline (a) 2x{v} differs from one card")
+        out[f"2x{v}"] = dict(losses=got, loss_rel_err=loss_err,
+                             param_max_diff=elem, move_rel_err=move_err,
+                             launches_per_step=launches)
+        del merged, move, ref_move
+    return out
+
+
+def _device_busy(torch, prof):
+    """Device ms of the profiled kernels on each card (by device index)."""
+    from torch.autograd import DeviceType
+
+    busy = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and \
+                e.name not in SUBLAYER_RANGES:
+            busy[e.device_index] = busy.get(e.device_index, 0.0) + \
+                e.device_time_total / 1e3
+    return busy
+
+
+def _pipe_bench(torch):
+    """(b) the bench cell in bf16: all 14 layers, batch 8 x 2048, 8
+    microbatches of 1, no remat inside the stages (their memory model is
+    the recompute from the stage input). Stages on min(4, cards) cards (2
+    stages on cuda:0 on one card); plain 1F1B and interleave 2 in turns
+    with train/step.py's bench step (dots remat) on the same tokens on
+    cuda:0: single, plain, interleaved, interleaved, plain, single, each
+    1 warm-up and 3 timed steps. Per variant: step ms, tokens/s, each
+    card's device ms in a profiled step over the mean timed step (the
+    busy share; its idle share against the bubble (p-1)/(m+p-1),
+    (p-1)/(v·m+p-1) interleaved), peak memory per
+    card, bytes moved between cards a step, flash launches a step
+    against `_pipe_counts`, and the profiled step's device time by
+    sub-layer range."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel.pipeline import LocalPipeline
+    from ray_tpu_torch.train.optim import adamw, leaves
+    from ray_tpu_torch.train.step import make_step
+
+    cards = torch.cuda.device_count()
+    p = min(4, cards) if cards > 1 else 2
+    devices = ([f"cuda:{i}" for i in range(p)] if cards > 1
+               else ["cuda:0"] * p)
+    if cards == 1:
+        log("pipeline (b): one card: the 2 stages share cuda:0 (no bubble "
+            "to measure: the card runs both stages' work)")
+    m = PIPE_MICROBATCHES
+    config = _bench_train_config(torch)
+    pipe_config = _bench_train_config(torch, remat=False)
+    L = config.n_layers
+    params = llama.init_params(config, torch.Generator(
+        device="cuda").manual_seed(SEED))
+    tokens = torch.randint(0, config.vocab_size,
+                           (PIPE_BATCH, config.max_seq + 1), device="cuda",
+                           generator=torch.Generator(
+                               device="cuda").manual_seed(SEED + 7))
+    pipes = {v: LocalPipeline(pipe_config, params, p, adamw(
+        1e-4, b1=0.9, b2=0.95, mu_dtype=torch.bfloat16), devices=devices,
+        interleave=v) for v in (1, 2)}
+    opt = adamw(1e-4, b1=0.9, b2=0.95, mu_dtype=torch.bfloat16)
+    for _, t in leaves(params):
+        t.requires_grad_(True)
+    state = {"params": params, "opt": opt.init(params)}
+    step = make_step(config, opt)
+    runs = {"single": lambda: step(state, tokens)[1]}
+    for v, pipe in pipes.items():
+        runs["plain" if v == 1 else "interleaved"] = (
+            lambda pipe=pipe: pipe.train_step(tokens, m)["loss"])
+    ms = {k: [] for k in runs}
+    losses = {k: [] for k in runs}
+    n_tok = PIPE_BATCH * config.max_seq
+
+    def sync_all():
+        for i in range(cards):
+            torch.cuda.synchronize(i)
+
+    for name in ("single", "plain", "interleaved", "interleaved", "plain",
+                 "single"):
+        losses[name].append(float(runs[name]()))
+        sync_all()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            losses[name].append(float(runs[name]()))
+        sync_all()
+        ms[name].append((time.perf_counter() - t0) / 3 * 1e3)
+    out = {"stages": p, "cards": cards, "devices": devices,
+           "microbatches": m, "batch": PIPE_BATCH, "seq": config.max_seq}
+    for name in runs:
+        if not all(math.isfinite(x) for x in losses[name]):
+            raise AssertionError(f"pipeline (b) {name}: losses "
+                                 f"{losses[name]}")
+        out[name] = dict(step_ms=ms[name], losses=losses[name],
+                         tokens_per_s=[n_tok / t * 1e3 for t in ms[name]])
+    for v, pipe in pipes.items():
+        name = "plain" if v == 1 else "interleaved"
+        for i in range(cards):
+            torch.cuda.reset_peak_memory_stats(i)
+        _reset_flash()
+        sync_all()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            pipe.train_step(tokens, m)
+            sync_all()
+            prof_ms = (time.perf_counter() - t0) * 1e3
+        launches = _flash_counts()
+        want = _pipe_counts(pipe_config, p * v, m)
+        if launches != want:
+            raise AssertionError(f"pipeline (b) {name}: flash launches "
+                                 f"{launches} != {want}")
+        busy = _device_busy(torch, prof)
+        peak = {i: torch.cuda.max_memory_allocated(i) / 2**30
+                for i in range(cards)}
+        step_ms = sum(ms[name]) / len(ms[name])
+        bubble = (p - 1) / (v * m + p - 1)
+        ranges = _range_split(prof)
+        out[name].update(
+            launches_per_step=launches, bytes_per_step=pipe.last_step_bytes,
+            profiled_step_ms=prof_ms, busy_ms=busy,
+            busy_share={i: busy.get(i, 0.0) / step_ms for i in range(cards)},
+            peak_mem_gib=peak,
+            bubble_model=bubble, ranges=ranges)
+        log(f"pipeline (b) {name}: {p} stages x interleave {v} on "
+            f"{devices}, bf16 bench cell {L} layers, batch {PIPE_BATCH} x "
+            f"{config.max_seq} in {m} microbatches: step ms "
+            f"{[round(t, 2) for t in ms[name]]} "
+            f"({[round(n_tok / t * 1e3) for t in ms[name]]} tokens/s); "
+            f"one card's step {[round(t, 2) for t in ms['single']]} ms; "
+            f"device ms of a profiled step ({prof_ms:.1f} ms) per card and "
+            "its share of the mean timed step "
+            + ", ".join(f"cuda:{i} {busy.get(i, 0.0):.1f} ms "
+                        f"{busy.get(i, 0.0) / step_ms:.1%}"
+                        for i in range(cards))
+            + f" (idle against the bubble model {bubble:.1%}); peak "
+            + ", ".join(f"cuda:{i} {gib:.2f} GiB" for i, gib in peak.items())
+            + f"; {pipe.last_step_bytes / 2**20:.1f} MiB between cards a "
+            f"step; flash launches a step {launches} (model {want})")
+        _log_ranges(f"pipeline (b) {name}", ranges)
+    del pipes, state, step, runs
+    return out
+
+
+def _flash_on_other_card(torch):
+    """(c) with 2 or more cards: K1, K3 dQ and K3 dK/dV launched on the
+    last card while cuda:0 is the thread's current device, at the bench
+    train shape of one microbatch (1 x 2048, 16/8 heads, 128), bf16 and
+    fp32, held against their plain versions on that card."""
+    from ray_tpu_torch.ops import attention as attn
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log("pipeline (c): one card: the launch on a card other than the "
+            "current one did not run")
+        return None
+    dev = torch.device(f"cuda:{cards - 1}")
+    torch.cuda.set_device(0)
+    out = {"device": str(dev)}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        randn, q, k, v = _flash_inputs(torch, "train",
+                                       (1, 2048, 2048, 16, 8), dtype)
+        q, k, v = (x.to(dev) for x in (q, k, v))
+        dout = randn(1, 2048, 16, 128).to(dev)
+        scale = 1.0 / math.sqrt(128)
+        assert torch.cuda.current_device() == 0
+        out_k, lse = attn.flash_fwd(q, k, v, True, scale)
+        ref_out, ref_lse = attn.flash_fwd_reference(q, k, v, True, scale)
+        delta = (dout.float() * ref_out.float()).sum(-1).transpose(
+            1, 2).contiguous()
+        args = (q, k, v, dout, ref_lse, delta, True, scale)
+        dq = attn.flash_bwd_dq(*args)
+        dk, dv = attn.flash_bwd_dkv(*args)
+        torch.cuda.synchronize(dev)
+        errs = {
+            "flash_fwd": _close(torch, f"(c) flash_fwd {dname} on {dev}",
+                                (out_k, lse), (ref_out, ref_lse),
+                                TOLERANCE[dname]),
+            "flash_bwd_dq": _close(torch, f"(c) dQ {dname} on {dev}", (dq,),
+                                   (attn.flash_bwd_dq_reference(*args),),
+                                   GRAD_TOLERANCE[dname]),
+            "flash_bwd_dkv": _close(torch, f"(c) dK/dV {dname} on {dev}",
+                                    (dk, dv),
+                                    attn.flash_bwd_dkv_reference(*args),
+                                    GRAD_TOLERANCE[dname])}
+        if out_k.device != dev or torch.cuda.current_device() != 0:
+            raise AssertionError("(c) the kernels ran on the wrong card")
+        log(f"pipeline (c) {dname}: K1, K3 dQ, K3 dK/dV on {dev} with "
+            f"cuda:0 current equal their plain versions there: max abs err "
+            f"{errs}")
+        out[dname] = errs
+    return out
+
+
+def phase_pipeline(torch):
+    _SHARED.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    RESULTS["pipeline"] = {"identity": _pipe_identity(torch)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    RESULTS["pipeline"]["bench"] = _pipe_bench(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    RESULTS["pipeline"]["other_card"] = _flash_on_other_card(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- rlhf
+
+RLHF_SYSTEM = (2, 3, 5, 7)
+RLHF_PROMPT_LEN, RLHF_NEW_TOKENS, RLHF_PROMPTS = 6, 32, 8
+# The bench widths (_bench_train_config) as LlamaConfig.tiny overrides.
+RLHF_WIDTHS = dict(vocab_size=32000, d_model=2048, n_heads=16,
+                   n_kv_heads=8, d_ff=7168)
+
+
+def _rlhf_setup(torch, n_layers):
+    """A LearnerWorker at the bench widths (fp32, flash attention, full
+    remat) from SEED and a graphed engine on its own copy of the LM."""
+    from ray_tpu_torch.llm.serving import LLMConfig, build_engine
+    from ray_tpu_torch.rlhf.trainer import LearnerWorker
+
+    kw = dict(RLHF_WIDTHS, n_layers=n_layers, max_seq=128,
+              attention_impl="flash")
+    hyper = dict(lr=1e-5, clip_eps=0.2, kl_coef=0.05, gamma=0.99, lam=0.95,
+                 vf_coef=0.5, ent_coef=0.0, ppo_epochs=1,
+                 pad_batch=RLHF_PROMPTS,
+                 pad_tokens=(len(RLHF_SYSTEM) + RLHF_PROMPT_LEN
+                             + RLHF_NEW_TOKENS),
+                 prefix=list(RLHF_SYSTEM))
+    learner = LearnerWorker(0, 1, kw, hyper, seed=SEED + 40)
+    lm = {k: ({n: t.detach().clone() for n, t in v.items()}
+              if isinstance(v, dict) else v.detach().clone())
+          for k, v in learner.policy["lm"].items()}
+    engine = build_engine(LLMConfig(
+        model_config=learner.config, num_kv_blocks=64, block_size=16,
+        max_batch_size=8, prefill_chunk=128), params=lm)
+    return learner, engine
+
+
+def _rlhf_prompts(start, n):
+    from ray_tpu_torch.rlhf.trainer import default_prompt_fn
+
+    return [default_prompt_fn(start + i, RLHF_PROMPT_LEN,
+                              RLHF_WIDTHS["vocab_size"]) for i in range(n)]
+
+
+def _rlhf_identity(torch):
+    """(a) fp32 at the bench widths, 2 layers: greedy rollouts equal greedy
+    decoding with the naive forward of the learner's LM; after one
+    update and colocated_hot_swap, the engine's greedy tokens equal the
+    learner's (and differ from before the update somewhere)."""
+    from ray_tpu_torch.llm.sampling import SamplingParams
+    from ray_tpu_torch.rlhf import rollout, weight_sync
+
+    learner, engine = _rlhf_setup(torch, 2)
+    items = list(enumerate(_rlhf_prompts(0, 4)))
+    exps = rollout.run_rollout_round(
+        engine, items, system_prompt=RLHF_SYSTEM,
+        max_new_tokens=RLHF_NEW_TOKENS)
+    for e in exps:
+        want = learner.greedy_tokens(list(RLHF_SYSTEM) + e.prompt,
+                                     RLHF_NEW_TOKENS)
+        if e.response != want:
+            raise AssertionError(f"rlhf (a) seq {e.seq_no}: engine "
+                                 f"{e.response} != naive {want}")
+    metrics = learner.update(exps)
+    weight_sync.colocated_hot_swap(engine, learner.policy["lm"],
+                                   learner.lm_meta, version=learner.version)
+    probes = [list(RLHF_SYSTEM) + p for p in _rlhf_prompts(100, 3)]
+    got = [list(o.output_token_ids) for o in engine.generate(
+        probes, SamplingParams(max_tokens=16))]
+    want = [learner.greedy_tokens(p, 16) for p in probes]
+    if got != want:
+        raise AssertionError(f"rlhf (a): after the swap the engine gives "
+                             f"{got}, the learner {want}")
+    log(f"rlhf (a): fp32 bench widths, 2 layers: 4 greedy rollouts equal "
+        f"the naive forward; after update ({metrics}) and "
+        f"colocated_hot_swap the engine's greedy tokens equal the "
+        f"learner's on 3 probes")
+    del learner, engine
+    return dict(update=metrics, equal=True)
+
+
+def _rlhf_loop(torch):
+    """(b) the colocated loop, fp32 at the bench widths and all 14 layers
+    on one card: three iterations of a RolloutCoordinator round of 8
+    prompts (system prompt 4 + 6 tokens, 32 new tokens; 4 greedy, then 4
+    at temperature 0.8 seeded by rollout_seed), one PPO update, one
+    colocated_hot_swap. Per iteration: rollout s and generated tok/s,
+    update s and its flash launches (2L forward in `_stats`, then 2L
+    forward, L dQ, L dK/dV in the checkpointed loss), sync ms, the K5
+    launches of the rollouts (all graph replays) and step_compiles
+    before and after the swap (unchanged). The ledger: every seq_no done
+    once, no duplicate."""
+    from ray_tpu_torch.ops import paged_attention as pa
+    from ray_tpu_torch.rlhf import rollout, weight_sync
+
+    learner, engine = _rlhf_setup(torch, 14)
+    L = learner.config.n_layers
+    coord = rollout.RolloutCoordinator()
+    consumed, iters = [], []
+    per_update = {"flash_fwd": 4 * L, "flash_bwd_dq": L,
+                  "flash_bwd_dkv": L}
+    for it in range(3):
+        coord.add_prompts(_rlhf_prompts(it * RLHF_PROMPTS, RLHF_PROMPTS))
+        pa.ragged_paged_attention_unified.launches = 0
+        pa.ragged_paged_attention.launches = 0
+        compiles0 = engine.stats()["step_compiles"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exps = []
+        for temperature in (0.0, 0.8):
+            exps += rollout.run_rollout_round(
+                engine, coord.take(RLHF_PROMPTS // 2),
+                system_prompt=RLHF_SYSTEM, max_new_tokens=RLHF_NEW_TOKENS,
+                temperature=temperature, base_seed=SEED)
+        torch.cuda.synchronize()
+        rollout_s = time.perf_counter() - t0
+        k5 = pa.ragged_paged_attention_unified.launches
+        k6 = pa.ragged_paged_attention.launches
+        fresh = coord.complete(exps)
+        batch = coord.drain_done()
+        consumed += [e.seq_no for e in batch]
+        _reset_flash()
+        t0 = time.perf_counter()
+        metrics = learner.update(batch)
+        torch.cuda.synchronize()
+        update_s = time.perf_counter() - t0
+        launches = _flash_counts()
+        if launches != per_update:
+            raise AssertionError(f"rlhf (b): flash launches an update "
+                                 f"{launches} != {per_update}")
+        t0 = time.perf_counter()
+        info = weight_sync.colocated_hot_swap(
+            engine, learner.policy["lm"], learner.lm_meta,
+            version=learner.version)
+        torch.cuda.synchronize()
+        sync_ms = (time.perf_counter() - t0) * 1e3
+        compiles1 = engine.stats()["step_compiles"]
+        n_tok = sum(len(e.response) for e in exps)
+        if k5 < L or k6 != 0 or compiles1 != compiles0 or \
+                len(fresh) != RLHF_PROMPTS:
+            raise AssertionError(f"rlhf (b) iteration {it}: K5 {k5}, K6 "
+                                 f"{k6}, step_compiles {compiles0} -> "
+                                 f"{compiles1}, {len(fresh)} fresh")
+        row = dict(rollout_s=rollout_s, tokens=n_tok,
+                   tokens_per_s=n_tok / rollout_s, update_s=update_s,
+                   sync_ms=sync_ms, k5_launches=k5, k6_launches=k6,
+                   step_compiles=(compiles0, compiles1),
+                   flash_per_update=launches, metrics=metrics,
+                   version=info["version"])
+        iters.append(row)
+        log(f"rlhf (b) iteration {it}: rollout {rollout_s:.3f} s ({n_tok} "
+            f"tokens, {n_tok / rollout_s:.1f} tok/s), update "
+            f"{update_s:.3f} s ({metrics}), sync {sync_ms:.1f} ms; K5 {k5} "
+            f"launches (replays), K6 {k6}; step_compiles {compiles0} -> "
+            f"{compiles1}; flash an update {launches}")
+    ledger = coord.ledger()
+    if sorted(consumed) != list(range(3 * RLHF_PROMPTS)) or \
+            ledger["dup_completions"] or not coord.round_complete():
+        raise AssertionError(f"rlhf (b) ledger {ledger}, consumed "
+                             f"{consumed}")
+    log(f"rlhf (b) ledger {ledger}: seq_nos 0..{3 * RLHF_PROMPTS - 1} each "
+        "consumed once")
+    del learner, engine
+    return dict(iterations=iters, ledger=ledger, layers=L)
+
+
+def phase_rlhf(torch):
+    _SHARED.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    RESULTS["rlhf"] = {"identity": _rlhf_identity(torch)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    RESULTS["rlhf"]["loop"] = _rlhf_loop(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- resnet
+
+RESNET_BATCH, RESNET_STEPS = 128, 20
+RESNET_CONFIG = dict(depth="resnet50", num_classes=10, width=64)
+
+
+def _resnet_run(torch, dtype):
+    """resnet50 at CIFAR-10 shapes (32 x 32 x 3, 10 classes, width 64),
+    batch RESNET_BATCH, AdamW(1e-3) on one seeded batch: RESNET_STEPS
+    timed steps after 2 warm-up ones; the loss falls."""
+    from ray_tpu_torch.models import resnet
+    from ray_tpu_torch.train.optim import adamw, leaves
+
+    config = resnet.ResNetConfig(dtype=dtype, **RESNET_CONFIG)
+    params, state = resnet.init(config, torch.Generator(
+        device="cuda").manual_seed(SEED + 50))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 51)
+    batch = {"image": torch.randn((RESNET_BATCH, 32, 32, 3), generator=gen,
+                                  device="cuda"),
+             "label": torch.randint(0, 10, (RESNET_BATCH,), generator=gen,
+                                    device="cuda")}
+    flat = [t.requires_grad_(True) for _, t in leaves(params)]
+    opt = adamw(1e-3)
+    opt_state = opt.init(params)
+
+    def step(state):
+        loss, aux = resnet.loss_fn(params, state, batch, config)
+        opt.update(params, torch.autograd.grad(loss, flat), opt_state)
+        return aux["state"], loss.detach()
+
+    losses = []
+    for _ in range(2):
+        state, loss = step(state)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(RESNET_STEPS):
+        state, loss = step(state)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / RESNET_STEPS * 1e3
+    losses = [float(x) for x in losses]
+    name = str(dtype).split(".")[1]
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"resnet {name}: losses {losses}")
+    out = dict(step_ms=step_ms, images_per_s=RESNET_BATCH / step_ms * 1e3,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               loss_first=losses[0], loss_last=losses[-1])
+    log(f"resnet50 {name}, CIFAR-10 shapes, batch {RESNET_BATCH}: "
+        f"{step_ms:.2f} ms/step ({RESNET_STEPS} timed after 2), "
+        f"{out['images_per_s']:.0f} images/s, peak "
+        f"{out['peak_mem_gib']:.2f} GiB, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}")
+    out["profile"] = _profile_train_step(
+        torch, lambda st, _: step(st), state, None, step_ms,
+        label=f"resnet50 {name} step")
+    return out
+
+
+def phase_resnet(torch):
+    _SHARED.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    RESULTS["resnet"] = {str(dt).split(".")[1]: _resnet_run(torch, dt)
+                         for dt in (torch.float32, torch.bfloat16)}
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3487,8 +4131,11 @@ def kernels_line() -> dict:
     K6) each rank's count on the tp phase's largest world (the mix for K5,
     the split identity run for K6); `launches_disagg` (K5, K6) each
     tier's count in the disagg phase, the prefill tier's and the decode
-    server's runs each from 0. `ms` is eager, host included;
-    `graph_ms` (K5/K6) the device time alone. `cuda_kernel` names the
+    server's runs each from 0; `launches_pipeline` (flash) a step of the
+    pipeline phase's bench cell, plain and interleaved; `launches_rlhf`
+    (K5) each rollout round of the rlhf loop (replays),
+    `launches_rlhf_update` (flash) one learner update. `ms` is eager, host
+    included; `graph_ms` (K5/K6) the device time alone. `cuda_kernel` names the
     `__global__` functions the bf16 case launches, as profiles show them."""
     rows = RESULTS.get("kernel_cases", [])
     train = RESULTS.get("train", {}).get("bench", {}).get("launches", {})
@@ -3499,9 +4146,19 @@ def kernels_line() -> dict:
         f"split_{max(tp.get('sizes') or [0])}_launches")
 
     tiers = RESULTS.get("disagg", {}).get("launches")
+    pipe = RESULTS.get("pipeline", {}).get("bench", {})
+    rlhf = RESULTS.get("rlhf", {}).get("loop", {}).get("iterations", [])
+
+    def flash_paths(kernel):
+        return {"launches_pipeline": {
+            v: pipe[v]["launches_per_step"][kernel] for v in
+            ("plain", "interleaved") if "launches_per_step" in pipe.get(
+                v, {})} or None,
+            "launches_rlhf_update": (rlhf[0]["flash_per_update"][kernel]
+                                     if rlhf else None)}
 
     def entry(kernel, name, cuda_kernel, source, replaces, head_case,
-              launches, launches_tp=None, col=None):
+              launches, launches_tp=None, col=None, **paths):
         mine = [r for r in rows if r["kernel"] == kernel]
         head = next((r for r in mine if r["case"] == head_case
                      and r["dtype"] == "bfloat16"), {})
@@ -3519,7 +4176,8 @@ def kernels_line() -> dict:
             "launches_tp_per_rank": launches_tp,
             "launches_disagg": ({"prefill_tier": tiers["prefill"][col],
                                  "decode_server": tiers["decode"][col]}
-                                if tiers and col is not None else None)}
+                                if tiers and col is not None else None),
+            **paths}
 
     attn = "ray_tpu/ops/attention.py"
     return {"kernels": [
@@ -3530,7 +4188,8 @@ def kernels_line() -> dict:
               "ray_tpu/ops/paged_attention.py:177", "tick_136",
               RESULTS.get("server", {}).get("k5_launches"),
               [r[0] for r in tp_top.get("launches_per_rank", [])] or None,
-              col=0),
+              col=0, launches_rlhf=[it["k5_launches"] for it in rlhf]
+              or None),
         entry("K6", "ragged_paged_attention",
               "rpa_tile_kernel (+ rpa_merge_kernel when split); fp32: "
               "rpa_kernel",
@@ -3541,15 +4200,15 @@ def kernels_line() -> dict:
         entry("flash_fwd", "flash_fwd", "flash_fwd_wgmma_kernel",
               "flash_attention.cu",
               f"{attn}:520 (K1), {attn}:553 (K2)", "train",
-              train.get("flash_fwd")),
+              train.get("flash_fwd"), **flash_paths("flash_fwd")),
         entry("flash_bwd_dq", "flash_bwd_dq", "flash_bwd_dq_wgmma_kernel",
               "flash_attention.cu",
               f"{attn}:616 (K3 dQ), {attn}:738 (K4 dQ)", "train_bwd",
-              train.get("flash_bwd_dq")),
+              train.get("flash_bwd_dq"), **flash_paths("flash_bwd_dq")),
         entry("flash_bwd_dkv", "flash_bwd_dkv", "flash_bwd_dkv_wgmma_kernel",
               "flash_attention.cu",
               f"{attn}:634 (K3 dK/dV), {attn}:771 (K4 dK/dV)", "train_bwd",
-              train.get("flash_bwd_dkv"))]}
+              train.get("flash_bwd_dkv"), **flash_paths("flash_bwd_dkv"))]}
 
 
 def main(argv=None) -> int:

@@ -35,6 +35,7 @@ from ray_tpu_torch.parallel import collectives as col
 from ray_tpu_torch.parallel.mesh import current_mesh, current_rules, use_mesh
 from ray_tpu_torch.parallel.ring import ring_attention, ulysses_attention
 from ray_tpu_torch.parallel.sharding import axes_of, constrain, seq_shard
+from ray_tpu_torch.util.tracing import profile_range
 
 LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
               "w_up", "w_down")
@@ -252,14 +253,16 @@ def attention_sublayer(config, x, p, cos, sin):
     b, s, _ = x.shape
     hd, mesh = config.head_dim, current_mesh()
     H, K = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
-    h = col.copy_to(rms_norm(x, p["attn_norm"], config.norm_eps), mesh,
-                    axes_of("heads"))
-    q = apply_rope((h @ p["wq"]).reshape(b, s, H, hd), cos, sin)
-    k = apply_rope((h @ p["wk"]).reshape(b, s, K, hd), cos, sin)
-    v = (h @ p["wv"]).reshape(b, s, K, hd)
-    attn = _attention_dispatch(config, q, k, v)
-    out = attn.reshape(b, s, H * hd) @ p["wo"]
-    return x + col.reduce_from(out, mesh, axes_of("heads"))
+    with profile_range("norm"):
+        h = rms_norm(x, p["attn_norm"], config.norm_eps)
+    with profile_range("attention"):
+        h = col.copy_to(h, mesh, axes_of("heads"))
+        q = apply_rope((h @ p["wq"]).reshape(b, s, H, hd), cos, sin)
+        k = apply_rope((h @ p["wk"]).reshape(b, s, K, hd), cos, sin)
+        v = (h @ p["wv"]).reshape(b, s, K, hd)
+        attn = _attention_dispatch(config, q, k, v)
+        out = attn.reshape(b, s, H * hd) @ p["wo"]
+        return x + col.reduce_from(out, mesh, axes_of("heads"))
 
 
 _LAYER_AXES = per_layer_axes(param_logical_axes())
@@ -270,9 +273,12 @@ def _layer(config: LlamaConfig, x, p, cos, sin):
     p = gather_layer_params(p, _LAYER_AXES)
     x = attention_sublayer(config, x, p, cos, sin)
     mesh, mlp = current_mesh(), axes_of("mlp")
-    h = col.copy_to(rms_norm(x, p["mlp_norm"], config.norm_eps), mesh, mlp)
-    out = swiglu(h @ p["w_gate"], h @ p["w_up"]) @ p["w_down"]
-    return x + col.reduce_from(out, mesh, mlp)
+    with profile_range("norm"):
+        h = rms_norm(x, p["mlp_norm"], config.norm_eps)
+    with profile_range("mlp"):
+        h = col.copy_to(h, mesh, mlp)
+        out = swiglu(h @ p["w_gate"], h @ p["w_up"]) @ p["w_down"]
+        return x + col.reduce_from(out, mesh, mlp)
 
 
 def _save_dots(ctx, func, *args, **kwargs):
@@ -358,7 +364,8 @@ def backbone(params: Dict, tokens: torch.Tensor,
     stacked = {k: params["layers"][k].unbind(0) for k in LAYER_KEYS}
     for li in range(config.n_layers):
         x = layer(x, {k: stacked[k][li] for k in LAYER_KEYS}, cos, sin)
-    return rms_norm(x, params["final_norm"], config.norm_eps)
+    with profile_range("norm"):
+        return rms_norm(x, params["final_norm"], config.norm_eps)
 
 
 def logits_of(x: torch.Tensor, lm_head: torch.Tensor) -> torch.Tensor:
@@ -440,6 +447,8 @@ def loss_fn(params: Dict, batch: Dict[str, torch.Tensor],
     batch holds this rank's batch shard with the whole sequence (the JAX
     step's ("batch", None) layout); the loss is the global mean."""
     inputs, targets, mask = shift_tokens(batch, params["embed"].device)
-    logits = forward(params, inputs, config)
-    loss = next_token_ce(logits, targets, mask)
+    hidden = backbone(params, inputs, config)
+    with profile_range("loss"):
+        loss = next_token_ce(logits_of(hidden, params["lm_head"]), targets,
+                             mask)
     return loss, {"loss": loss, "tokens": token_count(targets)}

@@ -25,13 +25,16 @@ def _weak(x: float, t: torch.Tensor) -> float:
 
 
 def leaves(tree) -> List[Tuple[str, torch.Tensor]]:
-    """(path, tensor) for every tensor of a nested dict, in key order."""
+    """(path, tensor) for every tensor of nested dicts and lists, in
+    `jax.tree_util`'s order: dict keys sorted, list items in order."""
     if isinstance(tree, torch.Tensor):
         return [("", tree)]
+    items = (enumerate(tree) if isinstance(tree, (list, tuple))
+             else ((k, tree[k]) for k in sorted(tree)))
     out = []
-    for key in sorted(tree):
-        for path, t in leaves(tree[key]):
-            out.append((f"{key}/{path}" if path else key, t))
+    for key, node in items:
+        for path, t in leaves(node):
+            out.append((f"{key}/{path}" if path else str(key), t))
     return out
 
 

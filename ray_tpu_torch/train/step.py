@@ -18,6 +18,7 @@ import torch
 
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.train.optim import AdamW, leaves
+from ray_tpu_torch.util.tracing import profile_range
 
 
 def init_state(config: llama.LlamaConfig, opt: AdamW,
@@ -40,7 +41,8 @@ def make_step(config: llama.LlamaConfig,
         params = state["params"]
         loss, _ = llama.loss_fn(params, {"tokens": tokens}, config)
         grads = torch.autograd.grad(loss, [p for _, p in leaves(params)])
-        opt.update(params, grads, state["opt"])
+        with profile_range("optimizer"):
+            opt.update(params, grads, state["opt"])
         return state, loss.detach()
 
     return step

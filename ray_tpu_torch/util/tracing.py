@@ -10,14 +10,20 @@ frame's bytes equal the JAX package's.
 `span` and `record_span` behave as the JAX package's do with tracing
 off: they neither record nor mint ids, so the context they run in is
 the caller's. Span recording and export are not ported.
+
+`profile_range` names a stretch of the train path (a sub-layer, the
+loss, the optimizer) for `torch.profiler`, while one records.
 """
 
 from __future__ import annotations
 
 import threading
 import zlib
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Optional
+
+import torch
+from torch.profiler import record_function
 
 _ctx = threading.local()
 
@@ -62,3 +68,13 @@ def span(name: str, kind: str, **attrs):
 
 def record_span(name: str, kind: str, start: float, end: float, **attrs):
     """A retroactive span with tracing off: nothing is recorded."""
+
+
+def profile_range(name: str):
+    """`record_function(name)` while a profiler records, else nothing:
+    inside a layer under non-reentrant activation checkpointing a
+    `record_function` costs ~0.7 ms of host time even with no profiler
+    (~10 us outside one), which the bench step cannot afford."""
+    if torch._C._autograd._profiler_enabled():
+        return record_function(name)
+    return nullcontext()

@@ -23,7 +23,9 @@ replay after `load_adapter` or `update_weights` reads the new values,
 `resize` captures once, and pages gathered off the card scatter back
 byte-exactly. The ring's chunk steps and merges equal whole-sequence
 flash attention, and a train step on a one-rank NCCL mesh equals the
-single-card step.
+single-card step. A pipeline with stages on cuda:0 and the last card
+equals the single-card step and launches the flash kernels as its
+schedule says.
 """
 
 import numpy as np
@@ -821,3 +823,54 @@ def test_handoff_and_migration_on_card(cuda, dtype):
     finally:
         for srv in (single, decode, target, prefill):
             srv.close()
+
+
+@pytest.mark.parametrize("interleave", [1, 2])
+def test_pipeline_stages_on_cards_equal_one_card_step(cuda, interleave):
+    """LocalPipeline with its stages on cuda:0 and on the machine's last
+    card (cuda:0 again on one card), fp32 flash, no remat, against
+    train/step.py on cuda:0 over 3 AdamW steps: losses within 1e-5
+    relative; the parameters' movement within 1e-3 by norm and every
+    element within 2·lr (an element whose gradient is near Adam's eps
+    moves as the order of fp32 sums decides). Per step the forward kernel runs
+    for each layer and microbatch in `fwd` (every chunk but the last) and
+    again in `bwd`'s re-run, the backward kernels once in `bwd`: K1 =
+    (L - L_last)·m + L·m, K3 = L·m."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops import attention as ta
+    from ray_tpu_torch.parallel.pipeline import (LocalPipeline,
+                                                 stage_layer_ranges)
+    from ray_tpu_torch.train.optim import adamw, leaves
+    from ray_tpu_torch.train.step import init_state, make_step
+
+    config = llama.LlamaConfig.tiny(d_model=256, n_heads=4, n_kv_heads=2,
+                                    n_layers=4, max_seq=256, remat=False,
+                                    attention_impl="flash",
+                                    dtype=torch.float32)
+    m, L = 4, config.n_layers
+    last = f"cuda:{torch.cuda.device_count() - 1}"
+    tokens = torch.randint(0, config.vocab_size, (m, 257), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(1))
+    lr = 1e-3
+    opt = adamw(lr)
+    state = init_state(config, opt, torch.Generator("cuda").manual_seed(0))
+    start = [p.detach().clone() for _, p in leaves(state["params"])]
+    pipe = LocalPipeline(config, state["params"], 2, adamw(lr),
+                         devices=["cuda:0", last], interleave=interleave)
+    step = make_step(config, opt)
+    lo, hi = stage_layer_ranges(L, 2 * interleave)[-1]
+    for _ in range(3):
+        want = step(state, tokens)[1].item()
+        ta.flash_fwd.launches = ta.flash_bwd_dq.launches = 0
+        ta.flash_bwd_dkv.launches = 0
+        got = pipe.train_step(tokens, n_microbatches=m)["loss"]
+        assert abs(got - want) <= 1e-5 * abs(want)
+        assert ta.flash_fwd.launches == (L - (hi - lo)) * m + L * m
+        assert ta.flash_bwd_dq.launches == ta.flash_bwd_dkv.launches == L * m
+    merged = [a for _, a in leaves(pipe.merged_params(device="cuda:0"))]
+    want = [b.detach() for _, b in leaves(state["params"])]
+    moved = torch.cat([(a - s).flatten() for a, s in zip(merged, start)])
+    ref = torch.cat([(b - s).flatten() for b, s in zip(want, start)])
+    assert ((moved - ref).norm() / ref.norm()).item() <= 1e-3
+    assert max((a - b).abs().max().item()
+               for a, b in zip(merged, want)) <= 2 * lr

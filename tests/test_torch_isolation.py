@@ -86,7 +86,10 @@ def test_train_modules_are_covered_and_refuse_a_missing_card():
             "ray_tpu_torch.llm.replica_policy",
             "ray_tpu_torch.collective.cpu_group",
             "ray_tpu_torch.runtime.wire", "ray_tpu_torch.runtime.chaos",
-            "ray_tpu_torch.util.tracing"} <= set(names)
+            "ray_tpu_torch.util.tracing", "ray_tpu_torch.parallel.pipeline",
+            "ray_tpu_torch.rl.ppo", "ray_tpu_torch.rlhf.weight_sync",
+            "ray_tpu_torch.rlhf.rollout", "ray_tpu_torch.rlhf.trainer",
+            "ray_tpu_torch.models.resnet"} <= set(names)
     if torch.cuda.is_available():
         pytest.skip("CUDA present: the default device is valid here")
     from ray_tpu_torch.models import llama
@@ -98,3 +101,34 @@ def test_train_modules_are_covered_and_refuse_a_missing_card():
         init_state(config, adamw(1e-4), torch.Generator())
     state = init_state(config, adamw(1e-4), torch.Generator(), device="cpu")
     assert state["params"]["embed"].device.type == "cpu"
+
+
+def test_pipeline_learner_and_resnet_refuse_a_missing_card():
+    """LocalPipeline's default devices (cuda:0..n-1), LearnerWorker and
+    resnet.init raise without a card and run when asked for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA present: the default device is valid here")
+    from ray_tpu_torch.models import llama, resnet
+    from ray_tpu_torch.parallel.pipeline import LocalPipeline
+    from ray_tpu_torch.rlhf.trainer import LearnerWorker
+    from ray_tpu_torch.train.optim import adamw
+
+    config = llama.LlamaConfig.tiny(dtype=torch.float32, n_layers=2)
+    params = llama.init_params(config, torch.Generator(), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LocalPipeline(config, params, 2, adamw(1e-3))
+    pipe = LocalPipeline(config, params, 2, adamw(1e-3),
+                         devices=["cpu", "cpu"])
+    assert pipe.devices == [torch.device("cpu")] * 2
+    tiny = dict(vocab_size=64, d_model=32, n_layers=1, n_heads=2,
+                n_kv_heads=2, d_ff=64)
+    hyper = dict(lr=1e-3, prefix=[], pad_batch=1, pad_tokens=8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LearnerWorker(0, 1, tiny, hyper, seed=0)
+    learner = LearnerWorker(0, 1, tiny, hyper, seed=0, device="cpu")
+    assert learner.policy["lm"]["embed"].device.type == "cpu"
+    rconfig = resnet.ResNetConfig(depth="resnet18", width=4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resnet.init(rconfig, torch.Generator())
+    params, _ = resnet.init(rconfig, torch.Generator(), device="cpu")
+    assert params["head"]["w"].device.type == "cpu"
