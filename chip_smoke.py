@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases device,build,mesh
     python3 chip_smoke.py --phases device,build,checkpoint,tp   # 2-4 cards
     python3 chip_smoke.py --phases device,build,pipeline,rlhf,resnet
+    python3 chip_smoke.py --phases device,build,runtime
     python3 chip_smoke.py --phases device --turns parent,.,.,parent
     python3 chip_smoke.py --phases device --turns a,b,b,a --turn-legs server
 
@@ -214,6 +215,24 @@ Phases, in order; any failure raises and the exit code is non-zero:
                A process holds one NCCL world in its lifetime
                (parallel/launch.py): the mesh checkpoint and bf16 legs run
                in new processes of this script (`--tp-leg`).
+ 17. runtime   the port's actor runtime (ray_tpu_torch.init on this host,
+               GPU the scheduled accelerator): cluster_resources' GPU equals
+               nvidia-smi's count; Llama-3-8B (bf16, full width, the SEED
+               weights) in a num_gpus=1 actor in a placement group of one
+               {"GPU": 1, "CPU": 1} bundle serves the server phase's
+               five-request mix concurrently through .completions.remote:
+               tok/s, TTFT per request, ITL p50/p99 beside the in-process
+               server's of the same run (the server phase's, else an
+               in-process run here), K5 launches counted inside the actor
+               (>= n_layers x ticks, K6 none, no capture); a second
+               num_gpus=1 actor stays pending 5 s while the first holds the
+               card and starts after the kill; a bf16 CUDA tensor put by
+               the driver is bit-equal in the actor, on its card, and back
+               on the driver's; a task without a GPU lease asking for CUDA
+               raises; an actor-hosted fp32 2-layer Llama-3-8B gives the
+               in-process server's greedy tokens; after shutdown no
+               `python -m ray_tpu_torch` process of this run's session and
+               not its /dev/shm/store_torch_<node>.shm file is left.
 The kernel phase also holds the three flash kernels (forward, dQ, dK/dV)
 against their plain versions in bf16 and fp32 at the train shape (4, 2048,
 16/8 heads, 128), with Llama-3-8B heads (32/8), a ragged tail (1000),
@@ -254,7 +273,7 @@ import zlib
 
 ALL_PHASES = ("device", "build", "kernel", "server", "lora", "pages",
               "disagg", "split", "identity", "train", "pipeline", "rlhf",
-              "resnet", "mesh", "checkpoint", "tp")
+              "resnet", "mesh", "checkpoint", "tp", "runtime")
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12,     # dense bf16 tensor-core rate
             "float32": 67e12}       # fp32 outside the tensor cores
@@ -4119,6 +4138,358 @@ def phase_tp(torch):
     RESULTS["tp"] = out
 
 
+# ---------------------------------------------------------------- runtime
+
+class RuntimeHost:
+    """Actor body of the runtime phase (ray_tpu_torch.remote wraps it; a
+    worker unpickles it by reference, importing this file as a module).
+    kind "llama3_8b": an LLMServer of Llama-3-8B at full width in bf16 on
+    the SEED weights, as the server phase builds it; "identity": the
+    2-layer fp32 Llama-3-8B of the fp32 identity; "probe": no model."""
+
+    def __init__(self, kind: str):
+        self.t_init = time.time()
+        import torch
+
+        self.t_torch = time.time()
+        self.torch = torch
+        self.server = None
+        if kind == "probe":
+            return
+        from ray_tpu_torch.llm.serving import LLMServer
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        config, params = _runtime_weights(torch, kind)
+        self.config = config
+        t0 = time.perf_counter()
+        self.server = LLMServer(_engine_config(config), params=params)
+        self.build_s = time.perf_counter() - t0
+
+    def info(self) -> dict:
+        """Where the actor runs; wall times (time.time(), one host) of its
+        __init__'s start, after torch's import and after CUDA's init."""
+        torch = self.torch
+        name = torch.cuda.get_device_name(0)
+        return {"cuda_visible_devices": os.environ.get(
+            "CUDA_VISIBLE_DEVICES"), "pid": os.getpid(),
+            "device_count": torch.cuda.device_count(), "device": name,
+            "build_s": getattr(self, "build_s", None),
+            "t_init": self.t_init, "t_torch": self.t_torch,
+            "t_cuda": time.time()}
+
+    def completions(self, request: dict) -> dict:
+        """One request, streamed inside the actor as the in-process
+        server's mix is (`_stream`): tokens, TTFT and inter-token gaps."""
+        record: dict = {}
+        _stream(self.server, request, record)
+        return record[request["request_id"]]
+
+    def reset_counts(self) -> None:
+        from ray_tpu_torch.ops import paged_attention as pa
+
+        self._stats0 = self.server.engine_stats()
+        pa.ragged_paged_attention_unified.launches = 0
+        pa.ragged_paged_attention.launches = 0
+
+    def counts(self) -> dict:
+        from ray_tpu_torch.ops import paged_attention as pa
+
+        stats = self.server.engine_stats()
+        return {"k5_launches": pa.ragged_paged_attention_unified.launches,
+                "k6_launches": pa.ragged_paged_attention.launches,
+                "ticks": stats["ticks"] - self._stats0["ticks"],
+                "step_compiles": [self._stats0["step_compiles"],
+                                  stats["step_compiles"]]}
+
+    def tensor_check(self, t, shape, seed) -> dict:
+        """The driver's bf16 CUDA tensor as this actor read it: on its
+        CUDA device, bit for bit the tensor made here from the seed."""
+        torch = self.torch
+        want = _seeded_bf16(torch, shape, seed)
+        return {"device": str(t.device), "dtype": str(t.dtype),
+                "bit_equal": bool(t.device.type == "cuda" and torch.equal(
+                    t.view(torch.int16), want.view(torch.int16)))}
+
+    def tensor_echo(self, t):
+        return t
+
+
+def _seeded_bf16(torch, shape, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(shape, generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+
+
+def _needs_card():
+    """A task with no GPU lease: its worker sees no card, so asking for
+    CUDA must raise (the port never falls back to the CPU)."""
+    from ray_tpu_torch.ops import resolve_device
+
+    return str(resolve_device("cuda"))
+
+
+def _runtime_weights(torch, kind):
+    from ray_tpu_torch.models import llama
+
+    if kind == "llama3_8b":
+        config = llama.LlamaConfig.llama3_8b(dtype=torch.bfloat16)
+        seed = SEED
+    else:
+        config = llama.LlamaConfig.llama3_8b(n_layers=2, dtype=torch.float32)
+        seed = SEED + 1
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return config, llama.init_params(config, gen, "cuda")
+
+
+def _wait_gone(pid: int, timeout: float) -> float:
+    """time.time() once process `pid` has left /proc."""
+    deadline = time.monotonic() + timeout
+    while os.path.exists(f"/proc/{pid}"):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"process {pid} still alive after kill")
+        time.sleep(0.02)
+    return time.time()
+
+
+def _runtime_processes(session_dir: str):
+    """Command lines of the port runtime processes of one session: the GCS
+    and raylet name the session directory on their command line, workers
+    in their environment. Another checkout's runtime on the same host is
+    not this run's."""
+    key = session_dir.encode()
+    env_key = b"RAY_TPU_TORCH_SESSION_DIR=" + key
+    found = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit() or int(entry) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ")
+            with open(f"/proc/{entry}/environ", "rb") as f:
+                env = f.read()
+        except OSError:
+            continue
+        if b"-m ray_tpu_torch" in cmd and (key in cmd or env_key in env):
+            found.append(f"{entry} {cmd.decode(errors='replace').strip()}")
+    return found
+
+
+def _in_process_mix(torch):
+    """The server phase's graphed mix on an in-process server, for the
+    runtime phase to stand beside (when the server phase did not run)."""
+    from ray_tpu_torch.llm.serving import LLMServer
+
+    config, params = _llama8b(torch)
+    server = LLMServer(_engine_config(config), params=params)
+    _, numbers = _server_run(torch, server, _mix_requests(config, "greedy"),
+                             config, "in-process")
+    server.close()
+    del server
+    return numbers
+
+
+def _actor_mix(torch, rt, host, config):
+    """The server phase's five-request mix, concurrently through the
+    actor's .completions.remote(...): every request 32 valid tokens, the
+    K5 launches counted inside the actor (exactly one a layer a tick, K6
+    none, no capture after warmup)."""
+    requests = _mix_requests(config, "greedy")
+    rt.get(host.reset_counts.remote(), timeout=60)
+    t0 = time.perf_counter()
+    refs = [host.completions.remote(r) for r in requests]
+    out = rt.get(refs, timeout=600)
+    wall = time.perf_counter() - t0
+    record = {r["request_id"]: o for r, o in zip(requests, out)}
+    for r in requests:
+        got = record[r["request_id"]]["tokens"]
+        if len(got) != 32 or not all(0 <= t < config.vocab_size
+                                     for t in got):
+            raise AssertionError(f"actor {r['request_id']}: bad output {got}")
+    counts = rt.get(host.counts.remote(), timeout=60)
+    ticks = counts["ticks"]
+    if (counts["k5_launches"] != config.n_layers * ticks or ticks == 0
+            or counts["k6_launches"]
+            or counts["step_compiles"][0] != counts["step_compiles"][1]):
+        raise AssertionError(f"actor mix: {counts} (n_layers "
+                             f"{config.n_layers})")
+    return dict(_mix_numbers(record, wall), **counts)
+
+
+def phase_runtime(torch):
+    """The port's actor runtime on the card: a cluster of this host,
+    Llama-3-8B served from a one-GPU actor in a placement group."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core import api
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.runtime.scheduling import PlacementGroupStrategy
+
+    import chip_smoke as this   # actor bodies pickled by reference
+
+    out: dict = {}
+    inproc = RESULTS.get("server") or _in_process_mix(torch)
+    _SHARED.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi_count = len([ln for ln in subprocess.run(
+        ["nvidia-smi", "-L"], capture_output=True, text=True, timeout=60,
+        check=True).stdout.splitlines() if ln.startswith("GPU ")])
+    t0 = time.perf_counter()
+    rt.init(object_store_memory=1 << 30)
+    try:
+        # This session's own processes and store file, for the check after
+        # shutdown.
+        session_dir = rt.get_runtime_context().session_dir
+        store_path = api._head.store_path
+        out["init_s"] = time.perf_counter() - t0
+        resources = rt.cluster_resources()
+        log(f"runtime: init in {out['init_s']:.2f} s, cluster_resources "
+            f"{resources}; nvidia-smi -L lists {smi_count} card(s)")
+        if resources.get("GPU") != smi_count:
+            raise AssertionError(f"GPU {resources.get('GPU')} != nvidia-smi "
+                                 f"count {smi_count}")
+        out.update(cluster_resources=resources, nvidia_smi_count=smi_count)
+        Host = rt.remote(this.RuntimeHost)
+        pg = rt.placement_group([{"GPU": 1, "CPU": 1}])
+        if not pg.wait(60):
+            raise AssertionError("placement group not created in 60 s")
+        in_pg = PlacementGroupStrategy(pg, 0)
+        # Llama-3-8B from a one-GPU actor in the group's bundle.
+        t0 = time.perf_counter()
+        server = Host.options(num_gpus=1, num_cpus=1, max_concurrency=8,
+                              scheduling_strategy=in_pg).remote("llama3_8b")
+        info = rt.get(server.info.remote(), timeout=900)
+        out["actor_up_s"] = time.perf_counter() - t0
+        log(f"runtime: 8B actor up in {out['actor_up_s']:.1f} s (server "
+            f"built in {info['build_s']:.1f} s) on {info['device']}, "
+            f"CUDA_VISIBLE_DEVICES={info['cuda_visible_devices']}, "
+            f"{info['device_count']} visible card(s)")
+        if info["device_count"] != 1:
+            raise AssertionError(f"actor sees {info['device_count']} cards")
+        config = llama.LlamaConfig.llama3_8b(dtype=torch.bfloat16)
+        mix = _actor_mix(torch, rt, server, config)
+        out["actor_mix"] = mix
+        out["in_process_mix"] = {k: inproc.get(k) for k in (
+            "generated_tok_s", "ttft_ms", "itl_p50_ms", "itl_p99_ms",
+            "ticks", "k5_launches")}
+        log(f"runtime: actor mix {mix['generated_tokens']} tokens in "
+            f"{mix['wall_s']:.2f} s ({mix['generated_tok_s']:.1f} generated "
+            f"tok/s), ITL p50 {mix['itl_p50_ms']:.2f} ms p99 "
+            f"{mix['itl_p99_ms']:.2f} ms, TTFT ms {mix['ttft_ms']}; K5 "
+            f"launches in the actor {mix['k5_launches']} over "
+            f"{mix['ticks']} ticks, K6 {mix['k6_launches']}")
+        log(f"runtime: in-process server (same run) "
+            f"{inproc['generated_tok_s']:.1f} generated tok/s, ITL p50 "
+            f"{inproc['itl_p50_ms']:.2f} ms p99 {inproc['itl_p99_ms']:.2f} "
+            f"ms, TTFT ms {inproc['ttft_ms']}")
+        # Scheduling: a second one-GPU actor in the same bundle stays
+        # pending while the first holds its card, and starts once the
+        # first is killed.
+        probe = Host.options(num_gpus=1,
+                             scheduling_strategy=in_pg).remote("probe")
+        waiting = probe.info.remote()
+        t0 = time.perf_counter()
+        ready, _ = rt.wait([waiting], num_returns=1, timeout=5)
+        if ready:
+            raise AssertionError("second one-GPU actor started while the "
+                                 "first held the card")
+        out["second_actor_pending_5s"] = not ready
+        t_kill = time.time()
+        t1 = time.perf_counter()
+        rt.kill(server)
+        gone = _wait_gone(info["pid"], 120)
+        probe_info = rt.get(waiting, timeout=300)
+        out["second_actor_started_after_kill_s"] = time.perf_counter() - t1
+        # Where those seconds go, on the host's wall clock: the killed
+        # worker's exit, the new worker up to its __init__, torch's
+        # import, CUDA's init (the first info() call).
+        out["second_actor_start_parts_s"] = parts = {
+            "killed_process_exit": gone - t_kill,
+            "to_new_init": probe_info["t_init"] - gone,
+            "torch_import": probe_info["t_torch"] - probe_info["t_init"],
+            "to_cuda_ready": probe_info["t_cuda"] - probe_info["t_torch"]}
+        log(f"runtime: second one-GPU actor pending for "
+            f"{t1 - t0:.1f} s while the first held the card; started "
+            f"{out['second_actor_started_after_kill_s']:.1f} s after the "
+            f"kill (CUDA_VISIBLE_DEVICES="
+            f"{probe_info['cuda_visible_devices']}); s: " + ", ".join(
+                f"{k} {v:.2f}" for k, v in parts.items()))
+        # A bf16 CUDA tensor through the object store, both ways.
+        shape, seed = (1024, 4096), SEED + 7
+        t = _seeded_bf16(torch, shape, seed)
+        ref = rt.put(t)
+        seen = rt.get(probe.tensor_check.remote(ref, shape, seed), timeout=60)
+        back = rt.get(probe.tensor_echo.remote(ref), timeout=60)
+        back_equal = bool(back.device.type == "cuda" and torch.equal(
+            back.view(torch.int16), t.view(torch.int16)))
+        out["tensor"] = dict(seen, back_device=str(back.device),
+                             back_bit_equal=back_equal,
+                             nbytes=t.numel() * t.element_size())
+        log(f"runtime: bf16 {list(shape)} tensor put by the driver, read in "
+            f"the actor on {seen['device']}: bit-equal {seen['bit_equal']};"
+            f" back on the driver's {back.device}: bit-equal {back_equal}")
+        if not (seen["bit_equal"] and back_equal):
+            raise AssertionError(f"tensor round trip: {out['tensor']}")
+        rt.kill(probe)
+        # No fallback: a worker without the card raises.
+        try:
+            rt.get(rt.remote(this._needs_card).remote(), timeout=120)
+        except rt.TaskError as e:
+            if "CUDA is not available" not in str(e):
+                raise
+            out["worker_without_card_raises"] = True
+        else:
+            raise AssertionError("a worker without a GPU lease reached CUDA")
+        log("runtime: a task without a GPU lease asking for CUDA raises")
+        # fp32 identity: actor-hosted and in-process 2-layer servers.
+        ident = Host.options(num_gpus=1, num_cpus=1, max_concurrency=8,
+                             scheduling_strategy=in_pg).remote("identity")
+        config2 = llama.LlamaConfig.llama3_8b(n_layers=2,
+                                              dtype=torch.float32)
+        requests = [dict(prompt=p, max_tokens=16, request_id=f"id-{i}")
+                    for i, p in enumerate(_prompts([20, 100, 300],
+                                                   config2.vocab_size,
+                                                   SEED + 3))]
+        # One request at a time on both sides: the same batch
+        # compositions, so fp32 rounding is the same.
+        actor_tokens = [rt.get(ident.completions.remote(r), timeout=900)[
+            "tokens"] for r in requests]
+        rt.kill(ident)
+        from ray_tpu_torch.llm.serving import LLMServer
+
+        local = LLMServer(_engine_config(config2),
+                          params=_runtime_weights(torch, "identity")[1])
+        local_tokens = [local.completions(dict(r))["choices"][0]["token_ids"]
+                        for r in requests]
+        local.close()
+        del local
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["fp32_identity_equal"] = actor_tokens == local_tokens
+        log(f"runtime: fp32 2-layer greedy tokens, actor == in-process: "
+            f"{out['fp32_identity_equal']} ({len(requests)} requests)")
+        if actor_tokens != local_tokens:
+            raise AssertionError(f"fp32 identity:\n{actor_tokens}\n"
+                                 f"{local_tokens}")
+        rt.remove_placement_group(pg)
+    finally:
+        rt.shutdown()
+    deadline = time.monotonic() + 60
+    while True:
+        procs = _runtime_processes(session_dir)
+        shm = os.path.exists(store_path)
+        if not procs and not shm:
+            break
+        if time.monotonic() > deadline:
+            raise AssertionError(f"after shutdown: processes {procs}, "
+                                 f"store file {store_path} left: {shm}")
+        time.sleep(0.5)
+    out["clean_after_shutdown"] = True
+    log(f"runtime: after shutdown no `python -m ray_tpu_torch` process of "
+        f"session {session_dir} and no {store_path} is left")
+    RESULTS["runtime"] = out
+
+
 def kernels_line() -> dict:
     """The machine-readable kernel summary, one entry per kernel: headline
     numbers from its bf16 case at the main path's own shape (K5: the
@@ -4134,6 +4505,8 @@ def kernels_line() -> dict:
     server's runs each from 0; `launches_pipeline` (flash) a step of the
     pipeline phase's bench cell, plain and interleaved; `launches_rlhf`
     (K5) each rollout round of the rlhf loop (replays),
+    `launches_runtime_actor` (K5) the runtime phase's mix, counted inside
+    the one-GPU actor that serves it,
     `launches_rlhf_update` (flash) one learner update. `ms` is eager, host
     included; `graph_ms` (K5/K6) the device time alone. `cuda_kernel` names the
     `__global__` functions the bf16 case launches, as profiles show them."""
@@ -4189,7 +4562,8 @@ def kernels_line() -> dict:
               RESULTS.get("server", {}).get("k5_launches"),
               [r[0] for r in tp_top.get("launches_per_rank", [])] or None,
               col=0, launches_rlhf=[it["k5_launches"] for it in rlhf]
-              or None),
+              or None, launches_runtime_actor=RESULTS.get(
+                  "runtime", {}).get("actor_mix", {}).get("k5_launches")),
         entry("K6", "ragged_paged_attention",
               "rpa_tile_kernel (+ rpa_merge_kernel when split); fp32: "
               "rpa_kernel",

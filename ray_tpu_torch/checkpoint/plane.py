@@ -37,7 +37,7 @@ logger = logging.getLogger(__name__)
 
 
 def _refuse_replication() -> ValueError:
-    from ray_tpu_torch.llm.engine import _unported
+    from ray_tpu_torch.core.exceptions import _unported
 
     return _unported("checkpoint shard replication to peers and its GCS "
                      "registration (they need the actor runtime, ROADMAP "

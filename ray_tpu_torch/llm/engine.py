@@ -60,6 +60,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ray_tpu_torch.core.exceptions import _unported
 from ray_tpu_torch.llm.model_runner import HostCopy, _bucket, token_buckets
 from ray_tpu_torch.llm.sampling import SamplingParams, sample
 from ray_tpu_torch.ops import to_torch
@@ -72,11 +73,6 @@ _PREFIX_CACHE_SALT = os.urandom(16)
 PIPELINE_DEPTH = 4
 # Finished requests whose request_breakdown the engine keeps.
 BREAKDOWNS_KEPT = 256
-
-
-def _unported(feature: str) -> ValueError:
-    return ValueError(f"{feature} is not ported to ray_tpu_torch yet "
-                      "(ROADMAP.md lists it as a later slice)")
 
 
 class WeightSyncError(RuntimeError):

@@ -17,7 +17,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ray_tpu_torch.llm.engine import _unported
+from ray_tpu_torch.core.exceptions import _unported
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.ops import resolve_device, to_numpy
 from ray_tpu_torch.rl import ppo

@@ -19,7 +19,8 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from ray_tpu_torch.llm.engine import WeightSyncError, _unported
+from ray_tpu_torch.core.exceptions import _unported
+from ray_tpu_torch.llm.engine import WeightSyncError
 
 
 def _dtype_name(leaf) -> str:

@@ -1,13 +1,14 @@
 """RPC fault injection: delay/drop/fail calls by method pattern.
 
-The port's copy of ray_tpu/runtime/chaos.py. The port has no RPC layer;
-its in-process replica adapter (llm/router.py `LocalReplica`) consults
-the process-local `RpcChaos` table before every call, as the JAX
-package's does, so tests drive the router's retry path with injected
+The port's copy of ray_tpu/runtime/chaos.py. The runtime's RPC layer
+(runtime/rpc.py) and the in-process replica adapter (llm/router.py
+`LocalReplica`) consult the process-local `RpcChaos` table before every
+call, as the JAX package's do, so tests drive retry paths with injected
 faults.
 
-Config is a spec string, programmatic or via the RAY_TPU_CHAOS env var (so
-spawned raylets/workers inherit it):
+Config is a spec string, programmatic or via the RAY_TPU_TORCH_CHAOS env
+var (so spawned raylets/workers inherit it; the port reads none of the JAX
+runtime's variables):
 
     "method_glob=mode:prob[:param][,...]"
 
@@ -15,9 +16,9 @@ spawned raylets/workers inherit it):
           timeout — swallow the reply: caller sees ConnectionLost after
                     param seconds (default 1.0)
           delay   — sleep param seconds (default 0.05) before dispatch
-  e.g. RAY_TPU_CHAOS="lease_worker=fail:0.2,pull_object=delay:0.3:0.1"
+  e.g. RAY_TPU_TORCH_CHAOS="lease_worker=fail:0.2,pull_object=delay:0.3:0.1"
 
-Determinism: draws come from a dedicated RNG seeded from RAY_TPU_CHAOS_SEED
+Determinism: draws come from a dedicated RNG seeded from RAY_TPU_TORCH_CHAOS_SEED
 (default 0) + the process id, so multi-process runs differ but a whole-test
 rerun with a fixed pid layout is reproducible in practice; tests assert on
 behavior (retries succeed), not on exact draw sequences.
@@ -65,9 +66,9 @@ class RpcChaos:
 
     def __init__(self):
         self._rules: List[ChaosRule] = []
-        seed = int(os.environ.get("RAY_TPU_CHAOS_SEED", "0"))
+        seed = int(os.environ.get("RAY_TPU_TORCH_CHAOS_SEED", "0"))
         self._rng = random.Random(seed ^ os.getpid())
-        spec = os.environ.get("RAY_TPU_CHAOS", "")
+        spec = os.environ.get("RAY_TPU_TORCH_CHAOS", "")
         if spec:
             self.configure(spec)
 
@@ -79,8 +80,9 @@ class RpcChaos:
         """Parse and append rules from a spec string (see module doc).
 
         Each rule is validated independently; a malformed fragment raises
-        ValueError naming the offending fragment (an RAY_TPU_CHAOS typo must
-        fail the run loudly, not silently change which faults get injected).
+        ValueError naming the offending fragment (a RAY_TPU_TORCH_CHAOS typo
+        must fail the run loudly, not silently change which faults get
+        injected).
         Rules parsed before the bad fragment are NOT added — the spec is
         applied all-or-nothing."""
         rules = []
@@ -113,7 +115,7 @@ class RpcChaos:
                         f"too many ':' fields ({len(fields)}, max 4)")
             except ValueError as e:
                 raise ValueError(
-                    f"bad RAY_TPU_CHAOS rule {part!r}: {e} "
+                    f"bad RAY_TPU_TORCH_CHAOS rule {part!r}: {e} "
                     f"(expected 'method_glob=mode:prob[:param[:max_hits]]')"
                 ) from e
             rules.append((pattern, mode, prob, param, max_hits))

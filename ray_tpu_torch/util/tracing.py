@@ -12,7 +12,9 @@ off: they neither record nor mint ids, so the context they run in is
 the caller's. Span recording and export are not ported.
 
 `profile_range` names a stretch of the train path (a sub-layer, the
-loss, the optimizer) for `torch.profiler`, while one records.
+loss, the optimizer) for `torch.profiler`, while one records. It imports
+torch when called, so the runtime's processes (which propagate the trace
+identity on every task) start without torch.
 """
 
 from __future__ import annotations
@@ -21,9 +23,6 @@ import threading
 import zlib
 from contextlib import contextmanager, nullcontext
 from typing import Optional
-
-import torch
-from torch.profiler import record_function
 
 _ctx = threading.local()
 
@@ -75,6 +74,9 @@ def profile_range(name: str):
     inside a layer under non-reentrant activation checkpointing a
     `record_function` costs ~0.7 ms of host time even with no profiler
     (~10 us outside one), which the bench step cannot afford."""
+    import torch
+    from torch.profiler import record_function
+
     if torch._C._autograd._profiler_enabled():
         return record_function(name)
     return nullcontext()

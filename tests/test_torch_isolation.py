@@ -8,6 +8,7 @@ caller asked for it.
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -61,6 +62,44 @@ def test_sources_import_neither_jax_nor_ray_tpu():
     assert not offenders, offenders
 
 
+def test_runtime_processes_start_without_torch_jax_or_ray_tpu():
+    """The GCS, raylet and worker entry modules (and the package __init__
+    they pass through) import neither torch nor jax nor a ray_tpu module:
+    a runtime process pays for torch only when a task or actor needs it."""
+    code = (
+        "import importlib, sys\n"
+        "for n in ('ray_tpu_torch.runtime.gcs.main',\n"
+        "          'ray_tpu_torch.runtime.raylet.main',\n"
+        "          'ray_tpu_torch.runtime.worker_main'):\n"
+        "    importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'jaxlib', 'ray_tpu'))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_runtime_sources_name_no_jax_runtime_variable_or_path():
+    """The port's runtime names its own environment variables
+    (RAY_TPU_TORCH_*) and its own base directory, so it never reads or
+    writes the JAX runtime's token, config, address, store directory or
+    session files in a shared process or host."""
+    sources = [PKG / "config.py", PKG / "__init__.py"] + sorted(
+        p for d in ("core", "runtime", "utils")
+        for p in (PKG / d).rglob("*.py"))
+    pattern = re.compile(r"RAY_TPU_(?!TORCH_)|/tmp/ray_tpu/")
+    offenders = []
+    for path in sources:
+        for i, line in enumerate(path.read_text().splitlines(), 1):
+            if pattern.search(line):
+                offenders.append(f"{path.relative_to(ROOT)}:{i}: {line}")
+    assert not offenders, offenders
+    assert (PKG / "runtime" / "rpc.py").exists()
+
+
 def test_entry_points_raise_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("CUDA present: the default device is valid here")
@@ -86,6 +125,11 @@ def test_train_modules_are_covered_and_refuse_a_missing_card():
             "ray_tpu_torch.llm.replica_policy",
             "ray_tpu_torch.collective.cpu_group",
             "ray_tpu_torch.runtime.wire", "ray_tpu_torch.runtime.chaos",
+            "ray_tpu_torch.runtime.rpc", "ray_tpu_torch.runtime.node",
+            "ray_tpu_torch.runtime.gcs.server",
+            "ray_tpu_torch.runtime.raylet.raylet",
+            "ray_tpu_torch.runtime.worker_main", "ray_tpu_torch.core.api",
+            "ray_tpu_torch.core.worker", "ray_tpu_torch.config",
             "ray_tpu_torch.util.tracing", "ray_tpu_torch.parallel.pipeline",
             "ray_tpu_torch.rl.ppo", "ray_tpu_torch.rlhf.weight_sync",
             "ray_tpu_torch.rlhf.rollout", "ray_tpu_torch.rlhf.trainer",

@@ -358,7 +358,9 @@ def test_chaos_spec_parses_as_jax(cpu_jax, spec):
         try:
             table.configure(spec)
         except ValueError as e:
-            return ("error", str(e))
+            # Each names its own package's variable.
+            return ("error", str(e).replace("RAY_TPU_TORCH_CHAOS",
+                                            "RAY_TPU_CHAOS"))
         return [(r.pattern, r.mode, r.prob, r.param, r.max_hits)
                 for r in table._rules]
 
