@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases device,build,checkpoint,tp   # 2-4 cards
     python3 chip_smoke.py --phases device,build,pipeline,rlhf,resnet
     python3 chip_smoke.py --phases device,build,runtime
+    python3 chip_smoke.py --phases device,build,serve
     python3 chip_smoke.py --phases device --turns parent,.,.,parent
     python3 chip_smoke.py --phases device --turns a,b,b,a --turn-legs server
 
@@ -233,6 +234,25 @@ Phases, in order; any failure raises and the exit code is non-zero:
                in-process server's greedy tokens; after shutdown no
                `python -m ray_tpu_torch` process of this run's session and
                not its /dev/shm/store_torch_<node>.shm file is left.
+ 18. serve     Serve on the port's runtime: inside one init(), the
+               controller actor, the HTTP proxy actor, then
+               build_openai_app(LLMConfig(...)) of the unified server's
+               cell (Llama-3-8B bf16 from the SEED weights, one replica of
+               one card) — each part of the deploy timed, the controller's
+               unpickling of the init args (its torch import) apart. The
+               five-request mix is POSTed concurrently over HTTP, plainly
+               and as server-sent events (?method=completions_stream&
+               stream=1): tok/s beside the in-process server's of the same
+               run, TTFT per request and ITL p50/p99 from the client's
+               events, K5 launches counted inside the replica (exactly
+               n_layers x ticks, all replays, K6 none, no capture). The
+               replica runs a subclass of LLMServer defined here that
+               reads and resets its process's counts. A 2-layer fp32
+               Llama-3-8B app gives the in-process server's greedy tokens
+               over HTTP; with 2+ cards, two one-card replicas of it both
+               take requests and each sees only its own card (skipped on
+               one card). After serve.delete, serve.shutdown and shutdown
+               no process of the session and no store file is left.
 The kernel phase also holds the three flash kernels (forward, dQ, dK/dV)
 against their plain versions in bf16 and fp32 at the train shape (4, 2048,
 16/8 heads, 128), with Llama-3-8B heads (32/8), a ragged tail (1000),
@@ -269,11 +289,12 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.request
 import zlib
 
 ALL_PHASES = ("device", "build", "kernel", "server", "lora", "pages",
               "disagg", "split", "identity", "train", "pipeline", "rlhf",
-              "resnet", "mesh", "checkpoint", "tp", "runtime")
+              "resnet", "mesh", "checkpoint", "tp", "runtime", "serve")
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12,     # dense bf16 tensor-core rate
             "float32": 67e12}       # fp32 outside the tensor cores
@@ -1027,12 +1048,14 @@ def _llama8b(torch):
 
 def _engine_config(config, **kw):
     """The smoke's serving configuration: block 16, 512 KV pages, max
-    batch 8, prefill chunk 128."""
+    batch 8, prefill chunk 128; the cluster prefix tier off (not ported:
+    a server inside the port's runtime refuses it)."""
     from ray_tpu_torch.llm.serving import LLMConfig
 
     return LLMConfig(**dict(dict(
         model_config=config, block_size=16, num_kv_blocks=512,
-        max_batch_size=8, prefill_chunk=128, device="cuda"), **kw))
+        max_batch_size=8, prefill_chunk=128, device="cuda",
+        cluster_prefix_store=False), **kw))
 
 
 def _mix_requests(config, tag, seed=SEED, loras=None):
@@ -4186,21 +4209,10 @@ class RuntimeHost:
         return record[request["request_id"]]
 
     def reset_counts(self) -> None:
-        from ray_tpu_torch.ops import paged_attention as pa
-
-        self._stats0 = self.server.engine_stats()
-        pa.ragged_paged_attention_unified.launches = 0
-        pa.ragged_paged_attention.launches = 0
+        self._stats0 = _reset_counts(self.server)
 
     def counts(self) -> dict:
-        from ray_tpu_torch.ops import paged_attention as pa
-
-        stats = self.server.engine_stats()
-        return {"k5_launches": pa.ragged_paged_attention_unified.launches,
-                "k6_launches": pa.ragged_paged_attention.launches,
-                "ticks": stats["ticks"] - self._stats0["ticks"],
-                "step_compiles": [self._stats0["step_compiles"],
-                                  stats["step_compiles"]]}
+        return _counts_since(self.server, self._stats0)
 
     def tensor_check(self, t, shape, seed) -> dict:
         """The driver's bf16 CUDA tensor as this actor read it: on its
@@ -4213,6 +4225,29 @@ class RuntimeHost:
 
     def tensor_echo(self, t):
         return t
+
+
+def _reset_counts(server) -> dict:
+    """Set this process's K5/K6 launch counts to 0; the server's engine
+    stats at that moment."""
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    pa.ragged_paged_attention_unified.launches = 0
+    pa.ragged_paged_attention.launches = 0
+    return server.engine_stats()
+
+
+def _counts_since(server, stats0) -> dict:
+    """K5/K6 launches, ticks and step_compiles (before, now) since
+    `_reset_counts` returned `stats0`."""
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    stats = server.engine_stats()
+    return {"k5_launches": pa.ragged_paged_attention_unified.launches,
+            "k6_launches": pa.ragged_paged_attention.launches,
+            "ticks": stats["ticks"] - stats0["ticks"],
+            "step_compiles": [stats0["step_compiles"],
+                              stats["step_compiles"]]}
 
 
 def _seeded_bf16(torch, shape, seed):
@@ -4490,6 +4525,306 @@ def phase_runtime(torch):
     RESULTS["runtime"] = out
 
 
+# ------------------------------------------------------------------ serve
+
+def _counting_server_cls():
+    """The serve phase's replica body: LLMServer with the K5/K6 launch
+    counts of its process (reset and read) and where it runs. Defined in a
+    function, so cloudpickle ships it by value to the replica."""
+    from ray_tpu_torch.llm.serving import LLMServer
+
+    class CountingServer(LLMServer):
+        def reset_counts(self, _=None) -> None:
+            self._stats0 = _reset_counts(self)
+
+        def counts(self, _=None) -> dict:
+            return _counts_since(self, self._stats0)
+
+        def where(self, _=None) -> dict:
+            import torch
+
+            return {"pid": os.getpid(), "cuda_visible_devices":
+                    os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    "device_count": torch.cuda.device_count(),
+                    "device": str(self.engine.runner.device)}
+
+    return CountingServer
+
+
+def _openai_app(serving, config, name):
+    """build_openai_app with the replicas running _counting_server_cls():
+    the module's LLMServer is that subclass while the app is built (the
+    deployment binds the class it finds there)."""
+    real = serving.LLMServer
+    serving.LLMServer = _counting_server_cls()
+    try:
+        return serving.build_openai_app(config, name)
+    finally:
+        serving.LLMServer = real
+
+
+def _post_json(url, body, timeout=600):
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return json.loads(resp.read())
+
+
+def _http_sse(url, request, record):
+    """POST one request as server-sent events (completions_stream) and
+    record, at the client, its tokens, TTFT and the arrival time of every
+    token event, as `_stream` does in process."""
+    req = urllib.request.Request(
+        url + "?method=completions_stream&stream=1",
+        data=json.dumps(request).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    times, tokens = [], None
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        if not resp.headers["Content-Type"].startswith("text/event-stream"):
+            raise AssertionError(f"SSE content type "
+                                 f"{resp.headers['Content-Type']}")
+        for raw in resp:
+            line = raw.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            data = line[len("data: "):]
+            if data == "[DONE]":
+                break
+            ev = json.loads(data)
+            if "error" in ev:
+                raise AssertionError(f"{request['request_id']}: {ev}")
+            if ev["finished"]:
+                tokens = ev["token_ids"]
+            else:
+                times.append(time.perf_counter())
+    if tokens is None:
+        raise AssertionError(f"{request['request_id']}: no final event")
+    record[request["request_id"]] = dict(
+        tokens=tokens, ttft_s=times[0] - t0,
+        total_s=time.perf_counter() - t0,
+        gaps_s=[b - a for a, b in zip(times, times[1:])])
+
+
+def _http_plain(url, request, record):
+    t0 = time.perf_counter()
+    out = _post_json(url, request)["result"]
+    record[request["request_id"]] = dict(
+        tokens=out["choices"][0]["token_ids"],
+        total_s=time.perf_counter() - t0)
+
+
+def _http_mix(url, requests, config, fn):
+    """`requests` POSTed concurrently through `fn` (one thread each);
+    every request must give 32 valid tokens. Returns (record, wall)."""
+    record: dict = {}
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=fn, args=(url, r, record))
+               for r in requests]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    wall = time.perf_counter() - t0
+    for r in requests:
+        got = record.get(r["request_id"], {}).get("tokens")
+        if (got is None or len(got) != 32
+                or not all(0 <= t < config.vocab_size for t in got)):
+            raise AssertionError(f"HTTP {r['request_id']}: bad output {got}")
+    return record, wall
+
+
+def _serve_identity(torch, serving, url, n_cards):
+    """The 2-layer fp32 Llama-3-8B (SEED + 1 weights, as the runtime
+    phase's identity) served through build_openai_app: greedy tokens over
+    HTTP equal an in-process server's. With 2+ cards the app has two
+    one-card replicas: both must answer, each seeing only its own card."""
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm.serving import LLMServer
+    from ray_tpu_torch.models import llama
+
+    config = llama.LlamaConfig.llama3_8b(n_layers=2, dtype=torch.float32)
+    requests = [dict(prompt=p, max_tokens=16)
+                for p in _prompts([20, 100, 300], config.vocab_size,
+                                  SEED + 3)]
+    replicas = 2 if n_cards >= 2 else 1
+    out = {"replicas": replicas}
+    _openai_app(serving, _engine_config(
+        config, seed=SEED + 1, num_replicas=replicas,
+        num_gpus_per_replica=1), "identity")
+    ident = f"{url.rsplit('/', 1)[0]}/identity"
+    # One request at a time: the same batch compositions on both sides,
+    # so fp32 rounding is the same; twice over for two replicas.
+    http_tokens = [_post_json(ident, r)["result"]["choices"][0]["token_ids"]
+                   for r in requests * replicas]
+    seen = {}
+    if replicas == 2:
+        h = serve.get_deployment_handle("identity")
+        for _ in range(16):
+            w = h.options("where").remote(None).result(timeout=60)
+            seen[w["pid"]] = w
+        log(f"serve: two one-card replicas: {sorted(seen.values(), key=str)}")
+        cards = sorted(w["cuda_visible_devices"] for w in seen.values())
+        if (len(seen) != 2 or len(set(cards)) != 2
+                or any(w["device_count"] != 1 for w in seen.values())):
+            raise AssertionError(f"two-replica leg: {seen}")
+        out["two_replicas"] = list(seen.values())
+    else:
+        log("serve: one card: the two-replica leg (one card each) skipped")
+    serve.delete("identity")
+    local = LLMServer(_engine_config(config, seed=SEED + 1))
+    local_tokens = [local.completions(dict(r))["choices"][0]["token_ids"]
+                    for r in requests]
+    local.close()
+    del local
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["fp32_identity_equal"] = http_tokens == local_tokens * replicas
+    log(f"serve: fp32 2-layer greedy tokens, HTTP == in-process: "
+        f"{out['fp32_identity_equal']} ({len(http_tokens)} requests over "
+        f"{replicas} replica(s))")
+    if not out["fp32_identity_equal"]:
+        raise AssertionError(f"serve fp32 identity:\n{http_tokens}\n"
+                             f"{local_tokens}")
+    return out
+
+
+def phase_serve(torch):
+    """Serve on the port's runtime on the card: Llama-3-8B served through
+    build_openai_app from a one-GPU replica behind the HTTP proxy."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.core import api
+    from ray_tpu_torch.llm import serving
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.serve import api as serve_api
+
+    out: dict = {}
+    inproc = RESULTS.get("server") or _in_process_mix(torch)
+    _SHARED.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_cards = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    rt.init(object_store_memory=1 << 30)
+    try:
+        session_dir = rt.get_runtime_context().session_dir
+        store_path = api._head.store_path
+        out["init_s"] = time.perf_counter() - t0
+        # The deploy, part by part: the controller actor, the HTTP proxy
+        # actor, then the app (the controller unpickles the init args,
+        # importing torch, then starts the replica and waits for it).
+        t0 = time.perf_counter()
+        controller = serve_api._get_controller()
+        rt.get(controller.global_version.remote(), timeout=120)
+        out["controller_up_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host, port = serve.start_http_proxy()
+        out["proxy_up_s"] = time.perf_counter() - t0
+        config = llama.LlamaConfig.llama3_8b(dtype=torch.bfloat16)
+        cfg = _engine_config(config, seed=SEED, num_replicas=1,
+                             num_gpus_per_replica=1)
+        t0 = time.perf_counter()
+        handle = _openai_app(serving, cfg, "v1-completions")
+        out["app_deploy_s"] = time.perf_counter() - t0
+        (row,) = [d for d in serve.status() if d["name"] == "v1-completions"]
+        out["controller_deploy_s"] = row["deploy_s"]
+        url = f"http://{host}:{port}/v1-completions"
+        where = handle.options("where").remote(None).result(timeout=60)
+        log(f"serve: init {out['init_s']:.2f} s; controller up "
+            f"{out['controller_up_s']:.2f} s; proxy up "
+            f"{out['proxy_up_s']:.2f} s at {host}:{port}; build_openai_app "
+            f"{out['app_deploy_s']:.2f} s, of it the controller's init-args "
+            f"unpickle {row['deploy_s']['init_args_unpickle']:.2f} s "
+            f"(imported torch: {row['deploy_s']['unpickle_imported_torch']})"
+            f" and the replica up {row['deploy_s']['replicas_up']:.2f} s; "
+            f"replica {where}")
+        if where["device_count"] != 1:
+            raise AssertionError(f"replica sees {where['device_count']} cards")
+        # One request down each route first: the proxy's first request
+        # to a deployment looks up its adapter and replicas and opens its
+        # connections (timed apart).
+        first = {}
+        for fn in (_http_plain, _http_sse):
+            warm = _mix_requests(config, f"first-{fn.__name__}",
+                                 seed=SEED + 13)[0]
+            t0 = time.perf_counter()
+            fn(url, warm, {})
+            first[fn.__name__[1:]] = time.perf_counter() - t0
+        out["first_request_s"] = first
+        # The mix over HTTP, the counts from 0 just before it: plainly on
+        # the in-process mix's prompts, then as server-sent events on
+        # prompts of the same lengths from another seed (the first leg's
+        # prompts would hit the prefix cache).
+        handle.options("reset_counts").remote(None).result(timeout=60)
+        plain_record, plain_wall = _http_mix(
+            url, _mix_requests(config, "greedy"), config, _http_plain)
+        sse_record, sse_wall = _http_mix(
+            url, _mix_requests(config, "sse", seed=SEED + 11), config,
+            _http_sse)
+        counts = handle.options("counts").remote(None).result(timeout=60)
+        ticks = counts["ticks"]
+        if (counts["k5_launches"] != config.n_layers * ticks or ticks == 0
+                or counts["k6_launches"]
+                or counts["step_compiles"][0] != counts["step_compiles"][1]):
+            raise AssertionError(f"serve mix: {counts} (n_layers "
+                                 f"{config.n_layers})")
+        n_plain = sum(len(v["tokens"]) for v in plain_record.values())
+        out["http_plain"] = dict(
+            generated_tokens=n_plain, wall_s=plain_wall,
+            generated_tok_s=n_plain / plain_wall,
+            total_ms={k: round(v["total_s"] * 1e3, 1)
+                      for k, v in plain_record.items()})
+        out["http_sse"] = _mix_numbers(sse_record, sse_wall)
+        out["replica_counts"] = counts
+        out["in_process_mix"] = {k: inproc.get(k) for k in (
+            "generated_tok_s", "ttft_ms", "itl_p50_ms", "itl_p99_ms",
+            "ticks", "k5_launches")}
+        sse = out["http_sse"]
+        log(f"serve: first request down each route (s) {first}; HTTP mix, "
+            f"plain POSTs {n_plain} tokens in {plain_wall:.2f} s "
+            f"({n_plain / plain_wall:.1f} generated tok/s, ms per request "
+            f"{out['http_plain']['total_ms']}); as server-sent events {sse['generated_tokens']} tokens"
+            f" in {sse_wall:.2f} s ({sse['generated_tok_s']:.1f} generated "
+            f"tok/s), ITL p50 {sse['itl_p50_ms']:.2f} ms p99 "
+            f"{sse['itl_p99_ms']:.2f} ms, TTFT ms {sse['ttft_ms']}; K5 "
+            f"launches in the replica {counts['k5_launches']} over {ticks} "
+            f"ticks (= {counts['k5_launches'] / ticks:.1f}/tick), K6 "
+            f"{counts['k6_launches']}, step_compiles "
+            f"{counts['step_compiles']}")
+        log(f"serve: in-process server (same run) "
+            f"{inproc['generated_tok_s']:.1f} generated tok/s, ITL p50 "
+            f"{inproc['itl_p50_ms']:.2f} ms p99 {inproc['itl_p99_ms']:.2f} "
+            f"ms, TTFT ms {inproc['ttft_ms']}")
+        t0 = time.perf_counter()
+        if not serve.delete("v1-completions"):
+            raise AssertionError("serve.delete found no v1-completions")
+        out["delete_s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["identity"] = _serve_identity(torch, serving, url, n_cards)
+    finally:
+        try:
+            serve.shutdown()
+        finally:
+            rt.shutdown()
+    deadline = time.monotonic() + 60
+    while True:
+        procs = _runtime_processes(session_dir)
+        shm = os.path.exists(store_path)
+        if not procs and not shm:
+            break
+        if time.monotonic() > deadline:
+            raise AssertionError(f"after shutdown: processes {procs}, "
+                                 f"store file {store_path} left: {shm}")
+        time.sleep(0.5)
+    out["clean_after_shutdown"] = True
+    log(f"serve: after serve.shutdown and shutdown no `python -m "
+        f"ray_tpu_torch` process of session {session_dir} and no "
+        f"{store_path} is left")
+    RESULTS["serve"] = out
+
+
 def kernels_line() -> dict:
     """The machine-readable kernel summary, one entry per kernel: headline
     numbers from its bf16 case at the main path's own shape (K5: the
@@ -4506,7 +4841,8 @@ def kernels_line() -> dict:
     pipeline phase's bench cell, plain and interleaved; `launches_rlhf`
     (K5) each rollout round of the rlhf loop (replays),
     `launches_runtime_actor` (K5) the runtime phase's mix, counted inside
-    the one-GPU actor that serves it,
+    the one-GPU actor that serves it, `launches_serve_replica` (K5) the
+    serve phase's HTTP mix, counted inside its one-GPU replica,
     `launches_rlhf_update` (flash) one learner update. `ms` is eager, host
     included; `graph_ms` (K5/K6) the device time alone. `cuda_kernel` names the
     `__global__` functions the bf16 case launches, as profiles show them."""
@@ -4563,7 +4899,9 @@ def kernels_line() -> dict:
               [r[0] for r in tp_top.get("launches_per_rank", [])] or None,
               col=0, launches_rlhf=[it["k5_launches"] for it in rlhf]
               or None, launches_runtime_actor=RESULTS.get(
-                  "runtime", {}).get("actor_mix", {}).get("k5_launches")),
+                  "runtime", {}).get("actor_mix", {}).get("k5_launches"),
+              launches_serve_replica=RESULTS.get("serve", {}).get(
+                  "replica_counts", {}).get("k5_launches")),
         entry("K6", "ragged_paged_attention",
               "rpa_tile_kernel (+ rpa_merge_kernel when split); fp32: "
               "rpa_kernel",

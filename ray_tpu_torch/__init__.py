@@ -13,7 +13,8 @@ mesh of ranks with DP/FSDP/TP/SP/EP (`ray_tpu_torch.parallel`).
 The actor runtime (tasks, actors, objects, placement groups, with the GPU
 as the scheduled accelerator) is the port's own copy under
 `ray_tpu_torch.core` and `ray_tpu_torch.runtime`; its API is exported
-here. Every export is resolved lazily (module `__getattr__`), so the
+here. Serve (deployments, handles, the controller, the HTTP ingress)
+runs on it: `ray_tpu_torch.serve`. Every export is resolved lazily (module `__getattr__`), so the
 runtime's processes (GCS, raylet, workers) start without importing torch.
 """
 

@@ -1,6 +1,7 @@
 """Central runtime config table: typed tunables, env-overridable.
 
-The port's copy of ray_tpu/config.py, cut to the runtime's entries, with
+The port's copy of ray_tpu/config.py, cut to the runtime's and Serve's
+entries, with
 the environment prefix RAY_TPU_TORCH_ (so the JAX package's own settings
 never reach the port's runtime).
 
@@ -65,6 +66,12 @@ _DEFS: Dict[str, Tuple[type, Any, str]] = {
     "pull_admission_concurrency": (int, 16,
                                    "concurrent cross-node chunk reads a "
                                    "raylet serves (admission control)"),
+    # -- serve -------------------------------------------------------------
+    "serve_autoscale_interval_s": (float, 1.0, "controller autoscale tick"),
+    "serve_handle_refresh_s": (float, 1.0,
+                               "handle replica-set re-poll period"),
+    "serve_replica_health_timeout_s": (float, 300.0,
+                                       "replica construction deadline"),
 }
 
 

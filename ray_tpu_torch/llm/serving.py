@@ -1,11 +1,12 @@
-"""In-process LLM serving: OpenAI-style completions over the port's engine.
+"""LLM serving: OpenAI-style completions over the port's engine, and the
+serve deployment around it.
 
-Port of the replica side of ray_tpu/llm/serving.py: a background thread
-drives the engine's step loop while request threads enqueue prompts and
-consume per-request queues, so many requests stream concurrently through
-one continuously-batched engine. Requests may name a LoRA adapter
-(`lora_name`); adapters load at build (`LLMConfig.lora_adapters`) or at
-run time (`load_lora_adapter`), and the slot pool may scale itself
+Port of ray_tpu/llm/serving.py: a background thread drives the engine's
+step loop while request threads enqueue prompts and consume per-request
+queues, so many requests stream concurrently through one continuously-
+batched engine. Requests may name a LoRA adapter (`lora_name`); adapters
+load at build (`LLMConfig.lora_adapters`) or at run time
+(`load_lora_adapter`), and the slot pool may scale itself
 (`lora_autoscale`). Evicted prefix blocks spill to a host tier
 (`host_prefix_mb`). Weights come from `params`, from a manifest-format
 checkpoint (`params_checkpoint`) or from `seed`; `tensor_parallel=N`
@@ -16,10 +17,14 @@ Every server listens for KV handoffs (llm/disagg.py `KVStreamServer`,
 on `LLMConfig.handoff_host`): a prefill tier (`disagg.PrefillServer`)
 streams prefilled requests to it, and a draining peer migrates its live
 sessions to it (`migrate_sessions`) or pushes its hot prefixes
-(`push_prefixes`). The wire is one TCP connection per request, so none
-of this needs an actor runtime; the cluster deployment around the
-server (the router deployment, replica actors, the cluster prefix tier)
-does, and is a later slice.
+(`push_prefixes`).
+
+`build_llm_deployment` wraps the server in a serve deployment of the
+port's runtime (ray_tpu_torch/serve) whose replicas take
+`num_gpus_per_replica` cards each, and `build_openai_app` deploys it
+behind the HTTP ingress. The router front (`build_routed_app`, and
+`routing="affinity"` or `disaggregate > 0`) and the cluster prefix tier
+are not ported yet and refuse.
 """
 
 from __future__ import annotations
@@ -35,6 +40,8 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from ray_tpu_torch import serve
+from ray_tpu_torch.core.exceptions import _unported
 from ray_tpu_torch.llm.disagg import (KVStreamServer, _completion_response,
                                       migrate_session, send_handoff)
 from ray_tpu_torch.llm.sampling import SamplingParams
@@ -91,6 +98,10 @@ class LLMConfig:
     num_kv_blocks: int = 256
     block_size: int = 16
     max_batch_size: int = 8
+    # Serve deployment (build_llm_deployment): replicas, and the whole
+    # cards each replica's actor takes (the JAX num_tpus_per_replica).
+    num_replicas: int = 1
+    num_gpus_per_replica: int = 0
     prefill_chunk: int = 128
     tokenizer: Any = None
     # Multi-LoRA (llm/lora.py): preloaded adapters and the slot table's
@@ -110,16 +121,27 @@ class LLMConfig:
     # "full" = the whole batch x chunk grid incl. the host-logits step,
     # "light" = the sequential-traffic set, "off" = none.
     warmup_buckets: str = "full"
+    # Serving-plane knobs of the JAX package's router front (llm/router.py
+    # there): routing="affinity", slo_ttft_s and disaggregate > 0 need the
+    # LLM router deployment, which the port refuses for now.
+    routing: str = "pow2"               # "pow2" | "affinity"
+    slo_ttft_s: float = 0.0
+    disaggregate: int = 0
     stream_timeout_s: float = 300.0
     # Host prefix tier (llm/prefix_store.py): evicted prefix blocks spill
     # to host RAM and are promoted back at admission; 0 disables it. The
-    # cluster tier needs an actor runtime: outside a cluster the JAX
-    # server leaves it off too, and here it stays off.
+    # cluster tier is not ported: outside a cluster the JAX server leaves
+    # it off too, and here it stays off; inside one (the port's runtime
+    # initialized in the server's process) cluster_prefix_store=True
+    # refuses, so callers there pass False.
     host_prefix_mb: float = 32.0
     host_prefix_low_watermark: float = 0.8
     cluster_prefix_store: bool = True
     # Address the server's KV stream listener binds (llm/disagg.py).
     handoff_host: str = "127.0.0.1"
+    # Deployment name, stamped by build_llm_deployment (the JAX package
+    # keys the fleet's cluster prefix rows with it).
+    deployment_name: str = ""
     device: Any = "cuda"
 
 
@@ -235,6 +257,14 @@ class LLMServer:
 
     def __init__(self, llm_config: LLMConfig, params: Optional[Dict] = None,
                  cuda_graphs: Optional[bool] = None):
+        from ray_tpu_torch.core import worker as worker_mod
+
+        if llm_config.cluster_prefix_store and worker_mod.is_initialized():
+            # Inside a cluster the JAX server publishes to and adopts from
+            # the GCS prefix table; the port has no such store yet.
+            raise _unported("cluster prefix store (an LLMServer inside the "
+                            "port's runtime; pass cluster_prefix_store="
+                            "False; ROADMAP.md queue 1 item 6.3)")
         self.engine = build_engine(llm_config, params, cuda_graphs)
         self._scope = _cuda_scope(self.engine.runner.device)
         self._replica_tag = uuid.uuid4().hex[:6]
@@ -561,6 +591,9 @@ class LLMServer:
 
     # ---- API -------------------------------------------------------------
 
+    def __call__(self, request: Dict) -> Dict:
+        return self.completions(request)
+
     def completions(self, request: Dict) -> Dict:
         """OpenAI-ish /v1/completions: {"prompt": str|[int], "max_tokens",
         "temperature", "top_k", "top_p", "stop_token_ids",
@@ -627,3 +660,33 @@ class LLMServer:
             if not finished:
                 self.abort(rid)
             self._streams.pop(rid, None)
+
+
+def build_llm_deployment(llm_config: LLMConfig, name: str = "llm") -> Any:
+    """A serve deployment of LLMServer bound to `llm_config`: its
+    num_replicas replicas each take num_gpus_per_replica cards and up to
+    max_batch_size concurrent requests."""
+    if llm_config.deployment_name != name:
+        llm_config = dataclasses.replace(llm_config, deployment_name=name)
+    dep = serve.deployment(LLMServer).options(
+        name=name, num_replicas=llm_config.num_replicas,
+        num_gpus=llm_config.num_gpus_per_replica,
+        max_ongoing_requests=llm_config.max_batch_size)
+    return dep.bind(llm_config)
+
+
+def build_routed_app(llm_config: LLMConfig, name: str = "v1-completions",
+                     *, http: bool = True):
+    """The JAX package's router front (the LLMRouter deployment over the
+    engine tier and an optional prefill tier) is not ported yet."""
+    raise _unported("build_routed_app (the LLM router deployment and the "
+                    "prefill tier; ROADMAP.md queue 1 item 6.2)")
+
+
+def build_openai_app(llm_config: LLMConfig, name: str = "v1-completions"):
+    """Deploys the engine and the HTTP ingress; POST /{name} serves
+    completions. routing="affinity" or disaggregate > 0 need the router
+    front (build_routed_app), which refuses."""
+    if llm_config.routing == "affinity" or llm_config.disaggregate > 0:
+        return build_routed_app(llm_config, name)
+    return serve.run(build_llm_deployment(llm_config, name), http=True)

@@ -10,9 +10,17 @@ which chunk follows the test count (the first chunks are count // 24 long)
 and the test durations, so adding or removing tests anywhere moves the
 split.
 
+A second hazard follows the split the same way:
+`tests/test_serve.py::test_push_config_propagation_no_polling` asserts
+that the serve config watcher is running after one handle call, but a
+handle starts it only on its second call; it passes only when
+`test_multiple_replicas_balanced` ran before it in the same module
+session on its worker (a whole run at 1600 collected tests failed it).
+
 This replays pytest-xdist's LoadScheduling on a collection with the
 durations of an earlier run (each jittered at random per trial) and counts
-the trials in which a worker is left with the cluster up:
+the trials in which a worker is left with the cluster up (`stranded`) and
+those in which the push test runs without its starter (`push_fails`):
 
     python -m pytest tests/ -q -m 'not slow' --collect-only > collect.txt
     python scripts/xdist_split.py collect.txt run.xml --scan -30 30 3
@@ -114,6 +122,27 @@ def stranded(items, ran):
     return out
 
 
+PUSH = "tests/test_serve.py::test_push_config_propagation_no_polling"
+PUSH_STARTER = "tests/test_serve.py::test_multiple_replicas_balanced"
+
+
+def push_fails(items, ran):
+    """True when the push test's worker did not run PUSH_STARTER earlier
+    in the same stretch of tests/test_serve.py (another module's test in
+    between tears the module's cluster and its watcher down)."""
+    for order in ran.values():
+        started, prev = False, None
+        for item in order:
+            module = items[item].split("::")[0]
+            if module != prev:
+                started, prev = False, module
+            if items[item] == PUSH_STARTER:
+                started = True
+            elif items[item] == PUSH:
+                return not started
+    return False
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("collect")
@@ -126,7 +155,7 @@ def main():
     args = ap.parse_args()
     items, durations = load(args.collect, args.junit)
     deltas = range(*args.scan) if args.scan else [0]
-    print("tests  first_chunk  stranded_trials")
+    print("tests  first_chunk  stranded_trials  push_fails")
     for delta in deltas:
         if delta >= 0:
             its = items + [f"tests/test_added.py::t{j}" for j in range(delta)]
@@ -134,11 +163,13 @@ def main():
         else:
             its, dus = items[:delta], durations[:delta]
         rng = random.Random(args.seed)
-        hits = sum(bool(stranded(its, schedule(dus, args.workers,
-                                               args.jitter, rng)))
-                   for _ in range(args.trials))
+        hits = push = 0
+        for _ in range(args.trials):
+            ran = schedule(dus, args.workers, args.jitter, rng)
+            hits += bool(stranded(its, ran))
+            push += push_fails(its, ran)
         print(f"{len(its):5d}  {len(its) // args.workers // 4:11d}  "
-              f"{hits}/{args.trials}")
+              f"{hits}/{args.trials}  {push}/{args.trials}")
 
 
 if __name__ == "__main__":

@@ -82,6 +82,35 @@ def test_runtime_processes_start_without_torch_jax_or_ray_tpu():
     assert res.returncode == 0, res.stderr
 
 
+def test_serve_modules_import_neither_torch_jax_nor_ray_tpu():
+    """Every module of ray_tpu_torch.serve (and the llm package's lazy
+    exports) loads no torch: the controller and proxy actors start without
+    it, as the runtime's processes do."""
+    names = ["ray_tpu_torch.llm"] + [
+        name for name, _ in _modules()
+        if name.startswith("ray_tpu_torch.serve")]
+    assert {"ray_tpu_torch.serve", "ray_tpu_torch.serve.api",
+            "ray_tpu_torch.serve.batching",
+            "ray_tpu_torch.serve.config_watcher",
+            "ray_tpu_torch.serve.controller",
+            "ray_tpu_torch.serve.deployment", "ray_tpu_torch.serve.handle",
+            "ray_tpu_torch.serve.http_adapters",
+            "ray_tpu_torch.serve.local_testing",
+            "ray_tpu_torch.serve.multiplex",
+            "ray_tpu_torch.serve.proxy"} <= set(names)
+    code = (
+        "import importlib, sys\n"
+        f"for n in {names!r}: importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'jaxlib', 'ray_tpu'))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
 def test_runtime_sources_name_no_jax_runtime_variable_or_path():
     """The port's runtime names its own environment variables
     (RAY_TPU_TORCH_*) and its own base directory, so it never reads or

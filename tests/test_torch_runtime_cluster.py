@@ -21,6 +21,7 @@ import time
 
 import numpy as np
 import pytest
+from torch_cluster import port_cluster
 
 import ray_tpu_torch as rt
 from ray_tpu_torch.runtime.scheduling import PlacementGroupStrategy
@@ -28,55 +29,10 @@ from ray_tpu_torch.runtime.scheduling import PlacementGroupStrategy
 T = 60  # every deadline in this file
 
 
-def _session_pids(session_dir: str):
-    """Processes of one port session: the GCS and raylet name the session
-    directory on their command line, workers in their environment."""
-    key = session_dir.encode()
-    env_key = b"RAY_TPU_TORCH_SESSION_DIR=" + key
-    pids = []
-    for entry in os.listdir("/proc"):
-        if not entry.isdigit() or int(entry) == os.getpid():
-            continue
-        try:
-            with open(f"/proc/{entry}/cmdline", "rb") as f:
-                cmd = f.read()
-            with open(f"/proc/{entry}/environ", "rb") as f:
-                env = f.read()
-        except OSError:
-            continue
-        if b"ray_tpu_torch" in cmd and (key in cmd or env_key in env):
-            pids.append(int(entry))
-    return pids
-
-
 @pytest.fixture(scope="module")
 def cluster():
-    from ray_tpu_torch.core import api
-
-    old = os.environ.get("RAY_TPU_TORCH_FAKE_GPUS")
-    os.environ["RAY_TPU_TORCH_FAKE_GPUS"] = "2"
-    session_dir = store_path = None
-    try:
-        rt.init(num_cpus=2, object_store_memory=128 << 20)
-        session_dir = rt.get_runtime_context().session_dir
-        store_path = api._head.store_path
-        yield session_dir
-    finally:
-        if old is None:
-            os.environ.pop("RAY_TPU_TORCH_FAKE_GPUS", None)
-        else:
-            os.environ["RAY_TPU_TORCH_FAKE_GPUS"] = old
-        try:
-            rt.shutdown()
-        finally:
-            if session_dir is not None:
-                for pid in _session_pids(session_dir):
-                    try:
-                        os.kill(pid, signal.SIGKILL)
-                    except OSError:
-                        pass
-            if store_path is not None and os.path.exists(store_path):
-                os.unlink(store_path)
+    with port_cluster(num_cpus=2, object_store_memory=128 << 20) as session:
+        yield session
 
 
 # ---- tasks and objects ---------------------------------------------------------
@@ -463,8 +419,11 @@ def test_tiny_server_in_actor_matches_jax_engine(cluster, cpu_jax):
 
             config = tl.LlamaConfig.tiny(dtype=torch.float32, **model)
             params = tl.params_from_numpy(np_params, config, device="cpu")
+            # Inside a cluster the cluster prefix tier refuses (ROADMAP.md
+            # queue 1 item 6.3): the host tier only, as outside one.
             self.server = LLMServer(
-                LLMConfig(model_config=config, device="cpu", **base),
+                LLMConfig(model_config=config, device="cpu",
+                          cluster_prefix_store=False, **base),
                 params=params)
 
         def completions(self, request):
