@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phases device,build,pipeline,rlhf,resnet
     python3 chip_smoke.py --phases device,build,runtime
     python3 chip_smoke.py --phases device,build,serve
+    python3 chip_smoke.py --phases device,build,router
     python3 chip_smoke.py --phases device --turns parent,.,.,parent
     python3 chip_smoke.py --phases device --turns a,b,b,a --turn-legs server
 
@@ -213,9 +214,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
                share (torch.profiler on every rank); mesh (d)'s state,
                trained on NCCL ranks and saved sharded, served at tp = 2
                equals a one-card server loaded from the same directory.
-               A process holds one NCCL world in its lifetime
-               (parallel/launch.py): the mesh checkpoint and bf16 legs run
-               in new processes of this script (`--tp-leg`).
+               (e) after the identity's world closed, worlds of 2 and 4
+               (or 2) ranks start, serve and close in the same process,
+               each giving one card's fp32 tokens. The mesh checkpoint
+               and bf16 legs run in new processes of this script
+               (`--tp-leg`).
  17. runtime   the port's actor runtime (ray_tpu_torch.init on this host,
                GPU the scheduled accelerator): cluster_resources' GPU equals
                nvidia-smi's count; Llama-3-8B (bf16, full width, the SEED
@@ -253,6 +256,29 @@ Phases, in order; any failure raises and the exit code is non-zero:
                take requests and each sees only its own card (skipped on
                one card). After serve.delete, serve.shutdown and shutdown
                no process of the session and no store file is left.
+ 19. router    the LLM router front on the port's runtime: inside one
+               init(), build_openai_app(LLMConfig(routing="affinity"))
+               of the unified server's cell (Llama-3-8B bf16, SEED
+               weights, one one-card engine replica) deploys the engine
+               tier and the LLMRouter deployment, each tier's deploy timed
+               (the router actor's start apart). The five-request mix is
+               POSTed concurrently through the router, then (same lengths,
+               another seed) straight to the engine deployment: tok/s of
+               both beside the in-process server's of the same run; K5
+               launches counted inside the replica (exactly n_layers x
+               ticks, all replays, K6 none, no capture). A shared-prefix
+               leg (3 prompts of 512 tokens, each sent 4 times): the
+               router's affinity hits and the engine's
+               prefix_tokens_saved; llm_serving_summary over the pushed
+               gauges. The 2-layer fp32 Llama-3-8B through the router
+               gives the in-process server's greedy tokens. With 2+
+               cards: two one-card 8B replicas, drain_replica mid-decode
+               migrates live sessions (every client whole, the event in
+               list_cluster_events); a disaggregate=1 fp32 app (K6 counted
+               on the prefill replica = n_layers x its runner steps, K5 on
+               the engine replica = n_layers x ticks, every request handed
+               off) gives the in-process tokens. Skipped on one card, and
+               logged. Nothing of the session is left after shutdown.
 The kernel phase also holds the three flash kernels (forward, dQ, dK/dV)
 against their plain versions in bf16 and fp32 at the train shape (4, 2048,
 16/8 heads, 128), with Llama-3-8B heads (32/8), a ragged tail (1000),
@@ -294,7 +320,8 @@ import zlib
 
 ALL_PHASES = ("device", "build", "kernel", "server", "lora", "pages",
               "disagg", "split", "identity", "train", "pipeline", "rlhf",
-              "resnet", "mesh", "checkpoint", "tp", "runtime", "serve")
+              "resnet", "mesh", "checkpoint", "tp", "runtime", "serve",
+              "router")
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12,     # dense bf16 tensor-core rate
             "float32": 67e12}       # fp32 outside the tensor cores
@@ -4117,11 +4144,43 @@ def _tp_from_mesh_checkpoint(torch, count):
                 bytes=manifest["nbytes"], tokens_equal=True)
 
 
+def _tp_two_worlds(torch, tp):
+    """(e) One process holds one NCCL world after another: after the
+    identity's world of `tp` ranks closed in this process, worlds of 2 and
+    of `tp` ranks start, serve (unified, graphed) and close in it too; the
+    fp32 2-layer Llama-3-8B's greedy tokens of each equal one card's."""
+    from ray_tpu_torch.llm.serving import build_engine
+    from ray_tpu_torch.models import llama
+
+    config = llama.LlamaConfig.llama3_8b(n_layers=2, dtype=torch.float32)
+    prompts = _prompts(TP_PROMPTS, config.vocab_size, SEED + 1)
+    got, out = {}, {}
+    for n in (1, 2, tp):
+        t0 = time.perf_counter()
+        engine = build_engine(_engine_config(
+            config, tensor_parallel=n, seed=SEED + 1, num_kv_blocks=256,
+            warmup_buckets="light"))
+        try:
+            got[n] = _greedy(engine, prompts, 8)
+        finally:
+            _close_world(engine.runner.close, n, f"tp (e) two worlds: tp={n}")
+        out[f"tp{n}_s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["tokens_equal"] = got[2] == got[1] and got[tp] == got[1]
+    log(f"tp (e) two worlds in one process: after the tp={tp} identity, "
+        f"tp=2 then tp={tp} started and closed here; greedy tokens == one "
+        f"card's: {out['tokens_equal']} ({out})")
+    if not out["tokens_equal"]:
+        raise AssertionError(f"tp two worlds: {got}")
+    return out
+
+
 def _tp_leg(name, *args):
     """`name(torch, *args)`, a leg of the tp phase that starts a
     tensor-parallel world, run in a new process of this script; returns
-    its result (JSON). A process holds one NCCL world in its lifetime
-    (parallel/launch.py)."""
+    its result (JSON). The 8B legs run apart, so each starts with the
+    card's memory to itself."""
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as d:
@@ -4152,8 +4211,10 @@ def phase_tp(torch):
     faulthandler.dump_traceback_later(600)
     tp = 4 if count >= 4 else 2
     out = dict(cards=count, sizes=[tp])
-    # This process's one world; the others each in a process of their own.
+    # The identity's world, then two more in this process; the heavy legs
+    # each in a process of their own.
     out["identity"] = _tp_identity(torch, tp)
+    out["two_worlds"] = _tp_two_worlds(torch, tp)
     out["mesh_checkpoint"] = _tp_leg("_tp_from_mesh_checkpoint", count)
     out["serving"] = {tp: _tp_leg("_tp_serving", tp)}
     out["ranks"] = tp
@@ -4825,6 +4886,420 @@ def phase_serve(torch):
     RESULTS["serve"] = out
 
 
+# ---------------------------------------------------------------- router
+
+def _counting_prefill_cls():
+    """The router phase's prefill replica body: PrefillServer with the
+    K5/K6 launch counts and the runner's rectangular steps of its process
+    (reset and read). Defined in a function, so cloudpickle ships it by
+    value to the replica."""
+    from ray_tpu_torch.llm.disagg import PrefillServer
+
+    class CountingPrefill(PrefillServer):
+        def reset_counts(self, _=None) -> None:
+            from ray_tpu_torch.ops import paged_attention as pa
+
+            if not hasattr(self, "_steps"):
+                self._steps = _count_runner_steps(self.engine.runner)
+            self._steps["steps"] = 0
+            pa.ragged_paged_attention_unified.launches = 0
+            pa.ragged_paged_attention.launches = 0
+
+        def counts(self, _=None) -> dict:
+            from ray_tpu_torch.ops import paged_attention as pa
+
+            return {"k5_launches": pa.ragged_paged_attention_unified.launches,
+                    "k6_launches": pa.ragged_paged_attention.launches,
+                    "runner_steps": self._steps["steps"]}
+
+    return CountingPrefill
+
+
+def _routed_app(serving, config, name):
+    """build_openai_app (routing="affinity" or disaggregate > 0: the router
+    front) with the engine replicas running _counting_server_cls() and the
+    prefill replicas _counting_prefill_cls()."""
+    from ray_tpu_torch.llm import disagg
+
+    real = disagg.PrefillServer
+    disagg.PrefillServer = _counting_prefill_cls()
+    try:
+        return _openai_app(serving, config, name)
+    finally:
+        disagg.PrefillServer = real
+
+
+def _deploy_parts(name):
+    """Each tier's deploy_s from the controller (unpickle of the init
+    args, replicas up), keyed by deployment."""
+    from ray_tpu_torch import serve
+
+    return {d["name"]: d["deploy_s"] for d in serve.status()
+            if d["name"] == name or d["name"].startswith(name + "-")}
+
+
+def _replica_calls(name, method, *args):
+    """`method(*args)` on every replica of deployment `name`, in the order
+    the router indexes them."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+
+    handles = serve.get_deployment_handle(name).replica_handles()
+    return rt.get([h.handle_request.remote(method, list(args), {})
+                   for h in handles], timeout=120)
+
+
+def _check_replica_counts(counts, config, label):
+    ticks = counts["ticks"]
+    if (counts["k5_launches"] != config.n_layers * ticks or ticks == 0
+            or counts["k6_launches"]
+            or counts["step_compiles"][0] != counts["step_compiles"][1]):
+        raise AssertionError(f"{label}: {counts} (n_layers "
+                             f"{config.n_layers})")
+
+
+def _shared_prefix_leg(url, config, name):
+    """3 prompts of 512 tokens, each sent 4 times (a round of the three
+    concurrently, four rounds): the router's affinity hits and the engine
+    replicas' prefix_tokens_saved over the leg."""
+    from ray_tpu_torch import serve
+
+    router = serve.get_deployment_handle(name)
+    prompts = _prompts([512] * 3, config.vocab_size, SEED + 17)
+    stats0 = router.options("router_stats").remote().result(timeout=60)
+    saved0 = sum(s["prefix_tokens_saved"]
+                 for s in _replica_calls(f"{name}-engine", "engine_stats"))
+    t0 = time.perf_counter()
+    for rnd in range(4):
+        requests = [dict(prompt=p, max_tokens=8, request_id=f"pfx-{rnd}-{i}")
+                    for i, p in enumerate(prompts)]
+        record: dict = {}
+        threads = [threading.Thread(target=_http_plain, args=(url, r, record))
+                   for r in requests]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(600)
+        for r in requests:
+            got = record.get(r["request_id"], {}).get("tokens")
+            if got is None or len(got) != 8:
+                raise AssertionError(f"shared prefix {r['request_id']}: {got}")
+    wall = time.perf_counter() - t0
+    stats = router.options("router_stats").remote().result(timeout=60)
+    saved = sum(s["prefix_tokens_saved"] for s in _replica_calls(
+        f"{name}-engine", "engine_stats")) - saved0
+    out = {"affinity_hits": stats["affinity_hits"] - stats0["affinity_hits"],
+           "affinity_misses": stats["affinity_misses"]
+           - stats0["affinity_misses"],
+           "prefix_tokens_saved": saved, "wall_s": wall}
+    log(f"router: shared-prefix leg (3 prompts x 512 tokens, 4 rounds) in "
+        f"{wall:.2f} s: affinity hits {out['affinity_hits']}, misses "
+        f"{out['affinity_misses']}, the engine's prefix_tokens_saved "
+        f"{saved}")
+    if out["affinity_hits"] < 9 or saved < 9 * 496:
+        raise AssertionError(f"shared-prefix leg: {out}")
+    return out
+
+
+def _serving_summary():
+    """llm_serving_summary once the replicas' gauges reached the GCS KV
+    (flushes are throttled to one a second)."""
+    from ray_tpu_torch.state import llm_serving_summary
+
+    deadline = time.monotonic() + 30
+    while True:
+        summary = llm_serving_summary()
+        if summary.get("kv_total_blocks"):
+            return summary
+        if time.monotonic() > deadline:
+            raise AssertionError(f"llm_serving_summary: {summary}")
+        time.sleep(0.5)
+
+
+def _router_identity(torch, serving, disaggregate=0):
+    """The 2-layer fp32 Llama-3-8B (SEED + 1 weights) through the router
+    front (one one-card engine replica, and with `disaggregate` a one-card
+    prefill replica): greedy tokens over HTTP equal an in-process
+    server's. With a prefill tier each request prefills there (K6, the
+    split path) and decodes on the engine replica (K5), counted in each
+    replica from 0."""
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm.serving import LLMServer
+    from ray_tpu_torch.models import llama
+
+    config = llama.LlamaConfig.llama3_8b(n_layers=2, dtype=torch.float32)
+    requests = [dict(prompt=p, max_tokens=16)
+                for p in _prompts([20, 100, 300], config.vocab_size,
+                                  SEED + 3)]
+    name = "router-fp32-disagg" if disaggregate else "router-fp32"
+    t0 = time.perf_counter()
+    _routed_app(serving, _engine_config(
+        config, seed=SEED + 1, num_replicas=1, num_gpus_per_replica=1,
+        routing="affinity", disaggregate=disaggregate), name)
+    out = {"deploy_s": time.perf_counter() - t0}
+    host, port = serve.start_http_proxy()
+    url = f"http://{host}:{port}/{name}"
+    engine = serve.get_deployment_handle(f"{name}-engine")
+    engine.options("reset_counts").remote(None).result(timeout=60)
+    if disaggregate:
+        prefill = serve.get_deployment_handle(f"{name}-prefill")
+        prefill.options("reset_counts").remote(None).result(timeout=60)
+    # One request at a time: the same batch compositions on both sides.
+    http_tokens = [_post_json(url, r)["result"]["choices"][0]["token_ids"]
+                   for r in requests]
+    counts = engine.options("counts").remote(None).result(timeout=60)
+    _check_replica_counts(counts, config, f"{name} engine replica")
+    out["engine_counts"] = counts
+    if disaggregate:
+        pc = prefill.options("counts").remote(None).result(timeout=60)
+        out["prefill_counts"] = pc
+        (stats,) = _replica_calls(f"{name}-engine", "engine_stats")
+        out["handoffs_adopted"] = stats["handoffs_adopted"]
+        if (pc["k5_launches"] or pc["runner_steps"] == 0
+                or pc["k6_launches"] != config.n_layers * pc["runner_steps"]
+                or stats["handoffs_adopted"] != len(requests)):
+            raise AssertionError(f"{name}: prefill replica {pc}, engine "
+                                 f"replica adopted {stats['handoffs_adopted']}")
+    for n in (name, f"{name}-engine", f"{name}-prefill"):
+        serve.delete(n)
+    local = LLMServer(_engine_config(config, seed=SEED + 1))
+    local_tokens = [local.completions(dict(r))["choices"][0]["token_ids"]
+                    for r in requests]
+    local.close()
+    del local
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["fp32_identity_equal"] = http_tokens == local_tokens
+    log(f"router: fp32 2-layer {name}: greedy tokens over HTTP == "
+        f"in-process: {out['fp32_identity_equal']}; engine replica "
+        f"{counts}" + (f"; prefill replica {out['prefill_counts']}, "
+                       f"handoffs adopted {out['handoffs_adopted']}"
+                       if disaggregate else ""))
+    if not out["fp32_identity_equal"]:
+        raise AssertionError(f"{name} fp32 identity:\n{http_tokens}\n"
+                             f"{local_tokens}")
+    return out
+
+
+def _router_drain(torch, serving):
+    """Two one-card Llama-3-8B bf16 replicas behind the router: five long
+    requests POSTed concurrently, then drain_replica on a replica that is
+    decoding; its live sessions move with their KV to the other one, every
+    client gets a whole answer, and LLM_SESSION_MIGRATED reaches the GCS
+    event ring."""
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.state import list_cluster_events
+
+    config = llama.LlamaConfig.llama3_8b(dtype=torch.bfloat16)
+    name = "router-drain"
+    t0 = time.perf_counter()
+    _routed_app(serving, _engine_config(
+        config, seed=SEED, num_replicas=2, num_gpus_per_replica=1,
+        routing="affinity"), name)
+    out = {"deploy_s": time.perf_counter() - t0}
+    host, port = serve.start_http_proxy()
+    url = f"http://{host}:{port}/{name}"
+    requests = [dict(prompt=p, max_tokens=256, request_id=f"drain-{i}",
+                     session_id=f"drain-{i}")
+                for i, p in enumerate(_prompts([40, 80, 120, 160, 200],
+                                               config.vocab_size,
+                                               SEED + 19))]
+    record: dict = {}
+    threads = [threading.Thread(target=_http_plain, args=(url, r, record))
+               for r in requests]
+    for th in threads:
+        th.start()
+    deadline = time.monotonic() + 120
+    while True:
+        busy = [i for i, s in enumerate(_replica_calls(
+            f"{name}-engine", "engine_stats")) if s["running"]]
+        if busy:
+            break
+        if time.monotonic() > deadline:
+            raise AssertionError("router drain: no replica decoding")
+        time.sleep(0.05)
+    t0 = time.perf_counter()
+    summary = serve.get_deployment_handle(name).options(
+        "drain_replica").remote(busy[0], reason="smoke").result(timeout=120)
+    out["drain_s"] = time.perf_counter() - t0
+    for th in threads:
+        th.join(600)
+    for r in requests:
+        got = record.get(r["request_id"], {}).get("tokens")
+        if got is None or len(got) != 256 or not all(
+                0 <= t < config.vocab_size for t in got):
+            raise AssertionError(f"router drain {r['request_id']}: {got}")
+    deadline = time.monotonic() + 30
+    while True:
+        events = list_cluster_events(event_type="LLM_SESSION_MIGRATED")
+        if events or time.monotonic() > deadline:
+            break
+        time.sleep(0.2)
+    out.update(migrated=summary["migrated"], replayed=summary["replayed"],
+               target=summary["target"], drained=busy[0],
+               event=events[0]["message"] if events else None)
+    log(f"router: drain of replica {busy[0]} mid-decode in "
+        f"{out['drain_s']:.2f} s: {len(summary['migrated'])} sessions "
+        f"migrated with KV ({summary['migrated']}), "
+        f"{len(summary['replayed'])} replayed, to replica "
+        f"{summary['target']}; every client got 256 tokens; event "
+        f"{out['event']!r}")
+    if not summary["migrated"] or not events:
+        raise AssertionError(f"router drain: {summary}, events {events}")
+    for n in (name, f"{name}-engine"):
+        serve.delete(n)
+    return out
+
+
+def phase_router(torch):
+    """The LLM router front on the port's runtime on the card: Llama-3-8B
+    served through build_openai_app(routing="affinity") behind the HTTP
+    proxy, the LLMRouter deployment in front of a one-GPU replica."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.core import api
+    from ray_tpu_torch.llm import serving
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.serve import api as serve_api
+
+    out: dict = {}
+    inproc = RESULTS.get("server") or _in_process_mix(torch)
+    _SHARED.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_cards = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    rt.init(object_store_memory=1 << 30)
+    try:
+        session_dir = rt.get_runtime_context().session_dir
+        store_path = api._head.store_path
+        out["init_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        controller = serve_api._get_controller()
+        rt.get(controller.global_version.remote(), timeout=120)
+        out["controller_up_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host, port = serve.start_http_proxy()
+        out["proxy_up_s"] = time.perf_counter() - t0
+        config = llama.LlamaConfig.llama3_8b(dtype=torch.bfloat16)
+        cfg = _engine_config(config, seed=SEED, num_replicas=1,
+                             num_gpus_per_replica=1, routing="affinity")
+        name = "v1-router"
+        t0 = time.perf_counter()
+        _routed_app(serving, cfg, name)
+        out["app_deploy_s"] = time.perf_counter() - t0
+        out["deploy_parts"] = _deploy_parts(name)
+        url = f"http://{host}:{port}/{name}"
+        direct_url = f"http://{host}:{port}/{name}-engine"
+        engine = serve.get_deployment_handle(f"{name}-engine")
+        where = engine.options("where").remote(None).result(timeout=60)
+        parts = out["deploy_parts"]
+        log(f"router: init {out['init_s']:.2f} s; controller up "
+            f"{out['controller_up_s']:.2f} s; proxy up "
+            f"{out['proxy_up_s']:.2f} s; build_openai_app(routing="
+            f"'affinity') {out['app_deploy_s']:.2f} s: engine tier "
+            f"{parts[name + '-engine']}, router {parts[name]}; replica "
+            f"{where}")
+        if where["device_count"] != 1:
+            raise AssertionError(f"replica sees {where['device_count']} cards")
+        # One request down each route first, timed apart: the router
+        # resolves its replicas on its first request, and the proxy looks
+        # up each deployment once.
+        first = {}
+        for label, u in (("router", url), ("direct", direct_url)):
+            warm = _mix_requests(config, f"first-{label}",
+                                 seed=SEED + 13)[0]
+            t0 = time.perf_counter()
+            _http_plain(u, warm, {})
+            first[label] = time.perf_counter() - t0
+        out["first_request_s"] = first
+        # The mix through the router, counts from 0 just before it; then
+        # the same lengths from another seed straight to the engine
+        # deployment (direct Serve, one actor hop less) in the same run.
+        engine.options("reset_counts").remote(None).result(timeout=60)
+        record, wall = _http_mix(url, _mix_requests(config, "greedy"),
+                                 config, _http_plain)
+        counts = engine.options("counts").remote(None).result(timeout=60)
+        _check_replica_counts(counts, config, "router mix")
+        direct, direct_wall = _http_mix(
+            direct_url, _mix_requests(config, "direct", seed=SEED + 11),
+            config, _http_plain)
+
+        def tok_s(rec, w):
+            n = sum(len(v["tokens"]) for v in rec.values())
+            return dict(generated_tokens=n, wall_s=w,
+                        generated_tok_s=n / w,
+                        total_ms={k: round(v["total_s"] * 1e3, 1)
+                                  for k, v in rec.items()})
+
+        out["http_router"] = tok_s(record, wall)
+        out["http_direct"] = tok_s(direct, direct_wall)
+        out["replica_counts"] = counts
+        out["in_process_mix"] = {k: inproc.get(k) for k in (
+            "generated_tok_s", "ttft_ms", "itl_p50_ms", "itl_p99_ms",
+            "ticks", "k5_launches")}
+        out["serve_phase_http_plain"] = RESULTS.get("serve", {}).get(
+            "http_plain", {}).get("generated_tok_s")
+        r, d = out["http_router"], out["http_direct"]
+        log(f"router: first request down each route (s) {first}; the mix "
+            f"through the router {r['generated_tokens']} tokens in "
+            f"{r['wall_s']:.2f} s ({r['generated_tok_s']:.1f} generated "
+            f"tok/s, ms per request {r['total_ms']}); straight to the "
+            f"engine deployment {d['generated_tok_s']:.1f} tok/s (ms per "
+            f"request {d['total_ms']}); in-process "
+            f"{inproc['generated_tok_s']:.1f} tok/s; K5 launches in the "
+            f"replica {counts['k5_launches']} over {counts['ticks']} ticks "
+            f"(= {counts['k5_launches'] / counts['ticks']:.1f}/tick), K6 "
+            f"{counts['k6_launches']}, step_compiles "
+            f"{counts['step_compiles']}")
+        out["shared_prefix"] = _shared_prefix_leg(url, config, name)
+        out["router_stats"] = serve.get_deployment_handle(name).options(
+            "router_stats").remote().result(timeout=60)
+        out["llm_serving_summary"] = _serving_summary()
+        s = out["llm_serving_summary"]
+        log(f"router: router_stats {out['router_stats']}; "
+            f"llm_serving_summary: {s.get('replicas_reporting')} replica(s) "
+            f"reporting, kv_total_blocks {s.get('kv_total_blocks')}, "
+            f"tokens_generated_total {s.get('tokens_generated_total')}, "
+            f"ttft_breakdown_ms {s.get('ttft_breakdown_ms')}")
+        if s.get("replicas_reporting", 0) < 1:
+            raise AssertionError(f"llm_serving_summary: {s}")
+        for n in (name, f"{name}-engine"):
+            serve.delete(n)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["identity"] = _router_identity(torch, serving)
+        if n_cards >= 2:
+            out["drain"] = _router_drain(torch, serving)
+            out["identity_disagg"] = _router_identity(torch, serving,
+                                                      disaggregate=1)
+        else:
+            log("router: one card: the drain leg (two one-card replicas) "
+                "and the disaggregate=1 leg (a prefill replica beside the "
+                "engine replica) skipped")
+    finally:
+        try:
+            serve.shutdown()
+        finally:
+            rt.shutdown()
+    deadline = time.monotonic() + 60
+    while True:
+        procs = _runtime_processes(session_dir)
+        shm = os.path.exists(store_path)
+        if not procs and not shm:
+            break
+        if time.monotonic() > deadline:
+            raise AssertionError(f"after shutdown: processes {procs}, "
+                                 f"store file {store_path} left: {shm}")
+        time.sleep(0.5)
+    out["clean_after_shutdown"] = True
+    log(f"router: after serve.shutdown and shutdown no `python -m "
+        f"ray_tpu_torch` process of session {session_dir} and no "
+        f"{store_path} is left")
+    RESULTS["router"] = out
+
+
 def kernels_line() -> dict:
     """The machine-readable kernel summary, one entry per kernel: headline
     numbers from its bf16 case at the main path's own shape (K5: the
@@ -4843,7 +5318,12 @@ def kernels_line() -> dict:
     `launches_runtime_actor` (K5) the runtime phase's mix, counted inside
     the one-GPU actor that serves it, `launches_serve_replica` (K5) the
     serve phase's HTTP mix, counted inside its one-GPU replica,
-    `launches_rlhf_update` (flash) one learner update. `ms` is eager, host
+    `launches_router_replica` (K5) the router phase's mix through the
+    LLMRouter, counted inside the engine replica, and with 2+ cards its
+    fp32 disaggregated app's counts inside the engine replica
+    (`launches_router_disagg_engine`, K5) and the prefill replica
+    (`launches_router_prefill`, K6), `launches_rlhf_update` (flash) one
+    learner update. `ms` is eager, host
     included; `graph_ms` (K5/K6) the device time alone. `cuda_kernel` names the
     `__global__` functions the bf16 case launches, as profiles show them."""
     rows = RESULTS.get("kernel_cases", [])
@@ -4901,14 +5381,22 @@ def kernels_line() -> dict:
               or None, launches_runtime_actor=RESULTS.get(
                   "runtime", {}).get("actor_mix", {}).get("k5_launches"),
               launches_serve_replica=RESULTS.get("serve", {}).get(
-                  "replica_counts", {}).get("k5_launches")),
+                  "replica_counts", {}).get("k5_launches"),
+              launches_router_replica=RESULTS.get("router", {}).get(
+                  "replica_counts", {}).get("k5_launches"),
+              launches_router_disagg_engine=RESULTS.get("router", {}).get(
+                  "identity_disagg", {}).get("engine_counts", {}).get(
+                  "k5_launches")),
         entry("K6", "ragged_paged_attention",
               "rpa_tile_kernel (+ rpa_merge_kernel when split); fp32: "
               "rpa_kernel",
               "paged_attention.cu",
               "ray_tpu/ops/paged_attention.py:69", "split_decode",
               RESULTS.get("split", {}).get("k6_launches"),
-              [r[1] for r in tp_split] if tp_split else None, col=1),
+              [r[1] for r in tp_split] if tp_split else None, col=1,
+              launches_router_prefill=RESULTS.get("router", {}).get(
+                  "identity_disagg", {}).get("prefill_counts", {}).get(
+                  "k6_launches")),
         entry("flash_fwd", "flash_fwd", "flash_fwd_wgmma_kernel",
               "flash_attention.cu",
               f"{attn}:520 (K1), {attn}:553 (K2)", "train",

@@ -66,6 +66,9 @@ _DEFS: Dict[str, Tuple[type, Any, str]] = {
     "pull_admission_concurrency": (int, 16,
                                    "concurrent cross-node chunk reads a "
                                    "raylet serves (admission control)"),
+    "cluster_events_max": (int, 10_000,
+                           "structured cluster events retained by the GCS "
+                           "event ring (see runtime/events.py)"),
     # -- serve -------------------------------------------------------------
     "serve_autoscale_interval_s": (float, 1.0, "controller autoscale tick"),
     "serve_handle_refresh_s": (float, 1.0,

@@ -16,6 +16,13 @@ _EXPORTS = {
     **{name: "ray_tpu_torch.llm.serving" for name in (
         "LLMConfig", "LLMServer", "RequestTimeoutError", "build_engine",
         "build_llm_deployment", "build_openai_app", "build_routed_app")},
+    **{name: "ray_tpu_torch.llm.router" for name in (
+        "RouterCore", "FleetSupervisor", "LLMRouter", "LocalReplica",
+        "ActorReplica", "prefill_with_retry")},
+    **{name: "ray_tpu_torch.llm.disagg" for name in (
+        "PrefillServer", "KVStreamServer", "HandoffError", "send_handoff")},
+    **{name: "ray_tpu_torch.llm.openai_router" for name in (
+        "ChatTemplate", "OpenAIRouter", "build_router_app")},
 }
 
 __all__ = sorted(_EXPORTS)

@@ -268,6 +268,10 @@ class KVStreamServer:
                 self.handoffs_adopted += 1
             else:
                 self.handoffs_rejected += 1
+        if adopted:
+            from ray_tpu_torch.runtime import metric_defs
+
+            metric_defs.LLM_KV_HANDOFFS.inc()
 
     def close(self):
         self._closed = True
@@ -315,6 +319,7 @@ class PrefillServer:
         finished during prefill."""
         prompt, params, rid, lora_name = self._parse(request)
         t0 = time.monotonic()
+        t0_wall = time.time()
         with self._lock, self._scope():
             # A caller-assigned request_id rides through, so the decode
             # side keeps the caller's name for the request (a replay
@@ -343,11 +348,16 @@ class PrefillServer:
             tps = len(prompt) / elapsed
             self._prefill_tps = (tps if self._prefill_tps == 0.0
                                  else 0.8 * self._prefill_tps + 0.2 * tps)
+            t1_wall = time.time()
         # Stream outside the lock: the socket write must not serialize the
         # next request's prefill behind network time. The trace id derives
-        # from the rid, so the handoff joins the request's trace.
+        # from the rid, so the prefill and handoff spans join the request's
+        # trace.
         t_send = time.monotonic()
         with tracing.trace_context(tracing.request_trace_id(rid), None):
+            tracing.record_span("llm:prefill", "llm", t0_wall, t1_wall,
+                                request_id=rid, tokens=len(prompt),
+                                tier="prefill")
             ack = send_handoff(decode_address, state, k, v,
                                kv_dtype=self.engine.runner.kv_dtype_name)
         return {"handoff": True, "rid": rid, "ack": ack,

@@ -39,7 +39,11 @@ Port of ray_tpu/llm/engine.py:
     path only, never a decode tick and never a unified tick (no unified
     CUDA graph is captured at warm-up); the caller exports each request
     after its first token. `request_breakdown` splits a finished
-    request's latency into queue, prefill, handoff, decode and stall.
+    request's latency into queue, prefill, handoff, decode and stall; at
+    finish the breakdown is kept (`breakdowns`), observed in the
+    ray_tpu_llm_{ttft,itl}_breakdown_ms histograms and recorded as the
+    request's llm:queue/llm:prefill/llm:decode spans (host work after
+    the tick, as the JAX engine's).
 
 The cluster prefix tier needs an actor runtime the port does not have
 yet: the engine refuses it with a ValueError instead of computing
@@ -64,6 +68,8 @@ from ray_tpu_torch.core.exceptions import _unported
 from ray_tpu_torch.llm.model_runner import HostCopy, _bucket, token_buckets
 from ray_tpu_torch.llm.sampling import SamplingParams, sample
 from ray_tpu_torch.ops import to_torch
+from ray_tpu_torch.runtime import metric_defs
+from ray_tpu_torch.util import tracing
 
 # Per-process key for the prefix-cache digest chain: unpredictable to
 # clients, so cache addresses can't be forged across tenants.
@@ -154,6 +160,7 @@ class _Request:
         self.lora_pinned = lora_slot != 0   # released once on finish
         self.prefix_hashes: Optional[List[bytes]] = None  # lazy, per prompt
         self.registered_blocks = 0  # prompt blocks made cache-addressable
+        self.adopted = False   # arrived via KV handoff (prefill elsewhere)
         # Lifecycle timestamps; they travel inside an exported request's
         # state, handoff_s/pause_s accumulate the time spent off-engine.
         self.timing: Dict[str, Optional[float]] = {
@@ -728,6 +735,7 @@ class LLMEngine:
                        int(state.get("lora_slot", 0)))
         req.output = [int(t) for t in state["output"]]
         req.seed_val = int(state["seed"])
+        req.adopted = True
         timing = state.get("timing")
         if timing:
             for key in ("t_submit", "t_admit", "t_first_token",
@@ -832,6 +840,7 @@ class LLMEngine:
         limit = min(len(req.prefix_hashes), (len(req.prompt) - 1) // bs)
         promoted = 0
         tier = self.host_prefix_tier
+        t_adopt0 = time.time()
         while tier is not None and len(req.blocks) < limit:
             j = len(req.blocks)
             e = tier.get(req.prefix_hashes[j])
@@ -851,6 +860,14 @@ class LLMEngine:
             promoted += bs
             self.host_prefix_hits += 1
             self.host_prefix_tokens_saved += bs
+        if promoted and tracing.enabled():
+            # Tokens the prefill did not recompute show up in the request's
+            # trace as a named span instead of unexplained TTFT variance.
+            with tracing.trace_context(tracing.request_trace_id(req.id),
+                                       None):
+                tracing.record_span(
+                    "llm:prefix_adopt", "llm", t_adopt0, time.time(),
+                    request_id=req.id, tokens_saved=promoted)
         return promoted
 
     def adopt_prefix(self, state: dict, k_pages, v_pages) -> int:
@@ -1471,7 +1488,11 @@ class LLMEngine:
                     break
             req.output.extend(accepted)
             self.spec_tokens_accepted += len(accepted) - 1
-            self.spec_tokens_proposed += len(prop)
+            if prop:
+                self.spec_tokens_proposed += len(prop)
+                metric_defs.LLM_SPEC_PROPOSED.inc(len(prop))
+                if len(accepted) > 1:
+                    metric_defs.LLM_SPEC_ACCEPTED.inc(len(accepted) - 1)
             outputs.append(self._emit(req, accepted))
             if req.finished_reason:
                 finished.append(req)
@@ -1677,6 +1698,9 @@ class LLMEngine:
             if prop:
                 self.spec_tokens_proposed += len(prop)
                 self.spec_tokens_accepted += len(accepted) - 1
+                metric_defs.LLM_SPEC_PROPOSED.inc(len(prop))
+                if len(accepted) > 1:
+                    metric_defs.LLM_SPEC_ACCEPTED.inc(len(accepted) - 1)
             outputs.append(self._emit(req, accepted))
             if req.finished_reason:
                 self.running.remove(req)
@@ -1684,6 +1708,7 @@ class LLMEngine:
         return outputs
 
     def _emit(self, req: _Request, new_tokens: List[int]) -> RequestOutput:
+        metric_defs.LLM_TOKENS_GENERATED.inc(len(new_tokens))
         now = time.time()
         if req.timing["t_first_token"] is None:
             req.timing["t_first_token"] = now
@@ -1692,11 +1717,7 @@ class LLMEngine:
         done = req.finished_reason is not None
         if done:
             self._unpin_lora(req)
-            bd = self.request_breakdown(req)
-            if bd is not None:
-                self.breakdowns[req.id] = bd
-                while len(self.breakdowns) > BREAKDOWNS_KEPT:
-                    self.breakdowns.popitem(last=False)
+            self._finish_trace(req)
         return RequestOutput(
             req.id, req.prompt, list(req.output), done, req.finished_reason,
             self._detok(req.output) if done else None, new_tokens)
@@ -1723,6 +1744,55 @@ class LLMEngine:
             "decode_s": max(0.0, t_last - t_first - handoff_s - stall_s),
             "stall_s": stall_s,
         }
+
+    def _finish_trace(self, req: _Request):
+        """Close out a finished request's latency attribution: keep its
+        breakdown (`breakdowns`), observe the ray_tpu_llm_{ttft,itl}_
+        breakdown_ms histograms and record the queue/prefill/decode spans
+        under the request's trace (the trace id derives from the request
+        id, so they stitch with the router's root span and the handoff
+        spans with no context crossing a process boundary). Host work
+        after the tick, as the JAX engine's."""
+        bd = self.request_breakdown(req)
+        if bd is None:
+            return
+        self.breakdowns[req.id] = bd
+        while len(self.breakdowns) > BREAKDOWNS_KEPT:
+            self.breakdowns.popitem(last=False)
+        metric_defs.LLM_TTFT_BREAKDOWN_MS.observe(
+            bd["queue_s"] * 1e3, tags={"phase": "queue"})
+        metric_defs.LLM_TTFT_BREAKDOWN_MS.observe(
+            bd["prefill_s"] * 1e3, tags={"phase": "prefill"})
+        if bd["handoff_s"]:
+            metric_defs.LLM_TTFT_BREAKDOWN_MS.observe(
+                bd["handoff_s"] * 1e3, tags={"phase": "handoff"})
+        # ITL phases are per inter-token gap: the mean decode gap, and the
+        # stall share (migration pauses) amortized over the same gaps.
+        gaps = max(1, len(req.output) - 1)
+        metric_defs.LLM_ITL_BREAKDOWN_MS.observe(
+            bd["decode_s"] * 1e3 / gaps, tags={"phase": "decode"})
+        if bd["stall_s"]:
+            metric_defs.LLM_ITL_BREAKDOWN_MS.observe(
+                bd["stall_s"] * 1e3 / gaps, tags={"phase": "stall"})
+        if not tracing.enabled():
+            return
+        t = req.timing
+        t_admit = t["t_admit"] if t["t_admit"] is not None else t["t_submit"]
+        with tracing.trace_context(tracing.request_trace_id(req.id), None):
+            if t_admit > t["t_submit"]:
+                tracing.record_span("llm:queue", "llm", t["t_submit"],
+                                    t_admit, request_id=req.id)
+            if not req.adopted:
+                # Adopted requests prefilled elsewhere: that server
+                # recorded the llm:prefill span.
+                tracing.record_span(
+                    "llm:prefill", "llm", t_admit, t["t_first_token"],
+                    request_id=req.id, tokens=len(req.prompt))
+            tracing.record_span(
+                "llm:decode", "llm", t["t_first_token"], t["t_last_token"],
+                request_id=req.id, tokens=len(req.output),
+                finish_reason=req.finished_reason or "",
+                **{k: round(v, 6) for k, v in bd.items()})
 
     def _check_finished(self, req: _Request):
         p = req.params

@@ -76,6 +76,7 @@ import dataclasses
 import functools
 import logging
 import math
+import time
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -572,7 +573,18 @@ class ModelRunner:
             return False
         self._seen_shapes.add(key)
         self.step_compiles += 1
+        from ray_tpu_torch.runtime import metric_defs
+        from ray_tpu_torch.util import tracing
+
+        metric_defs.LLM_STEP_COMPILES.inc()
         logger.info("llm step shape #%d: %s", self.step_compiles, key)
+        # Instant span: the capture (or first eager run) happens in the
+        # dispatch that follows; a marker in the request timeline is what
+        # attributes the one slow inter-token gap to it.
+        t = time.time()
+        tracing.record_span("llm:step_compile", "llm", t, t,
+                            entry_point=kind,
+                            compile_index=self.step_compiles)
         return True
 
     def to_device(self, a, dtype=torch.int32) -> torch.Tensor:

@@ -19,12 +19,18 @@ streams prefilled requests to it, and a draining peer migrates its live
 sessions to it (`migrate_sessions`) or pushes its hot prefixes
 (`push_prefixes`).
 
+Each server publishes its engine_stats() numbers as gauges
+(runtime/metric_defs.py, once a second from its loop and on every
+engine_stats() call), which `state.llm_serving_summary` rolls up.
+
 `build_llm_deployment` wraps the server in a serve deployment of the
 port's runtime (ray_tpu_torch/serve) whose replicas take
 `num_gpus_per_replica` cards each, and `build_openai_app` deploys it
-behind the HTTP ingress. The router front (`build_routed_app`, and
-`routing="affinity"` or `disaggregate > 0`) and the cluster prefix tier
-are not ported yet and refuse.
+behind the HTTP ingress. With routing="affinity" or disaggregate > 0,
+`build_routed_app` puts the LLM router deployment (llm/router.py) in
+front of the engine tier and, for disaggregate > 0, a tier of
+`PrefillServer` replicas. The cluster prefix tier is not ported: an
+LLMServer inside the port's runtime refuses cluster_prefix_store=True.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import logging
+import os
 import queue
 import threading
 import time
@@ -121,9 +128,11 @@ class LLMConfig:
     # "full" = the whole batch x chunk grid incl. the host-logits step,
     # "light" = the sequential-traffic set, "off" = none.
     warmup_buckets: str = "full"
-    # Serving-plane knobs of the JAX package's router front (llm/router.py
-    # there): routing="affinity", slo_ttft_s and disaggregate > 0 need the
-    # LLM router deployment, which the port refuses for now.
+    # Serving-plane knobs (llm/router.py, llm/disagg.py): routing=
+    # "affinity" fronts the replica fleet with the LLM router deployment;
+    # slo_ttft_s > 0 arms its admission gate (projected TTFT above the SLO
+    # sheds with a 429-shaped error); disaggregate=N runs N prefill
+    # replicas that stream populated KV pages to the engine tier.
     routing: str = "pow2"               # "pow2" | "affinity"
     slo_ttft_s: float = 0.0
     disaggregate: int = 0
@@ -194,6 +203,23 @@ def _runner(llm_config: LLMConfig, config, device, params, cuda_graphs):
                        block_size=llm_config.block_size,
                        chunk_size=llm_config.prefill_chunk, device=device,
                        cuda_graphs=cuda_graphs, lora_manager=lora_manager)
+
+
+def _node_hex() -> Optional[str]:
+    """This process's cluster node id (hex) when the port's runtime is
+    initialized in it: the key the router maps NODE_DRAINING/NODE_DEAD
+    events to replicas with. None outside a cluster."""
+    try:
+        from ray_tpu_torch.core import worker as worker_mod
+
+        if worker_mod.is_initialized():
+            nid = worker_mod.global_worker().node_id
+            if isinstance(nid, (bytes, bytearray)):
+                return bytes(nid).hex()
+            return str(nid) if nid is not None else None
+    except Exception:
+        pass
+    return None
 
 
 def _cuda_scope(device: torch.device):
@@ -267,7 +293,7 @@ class LLMServer:
                             "False; ROADMAP.md queue 1 item 6.3)")
         self.engine = build_engine(llm_config, params, cuda_graphs)
         self._scope = _cuda_scope(self.engine.runner.device)
-        self._replica_tag = uuid.uuid4().hex[:6]
+        self._replica_tag = f"{os.getpid()}-{uuid.uuid4().hex[:6]}"
         self.config = llm_config
         self.tokenizer = llm_config.tokenizer
         self._timeout_s = llm_config.stream_timeout_s
@@ -288,6 +314,11 @@ class LLMServer:
                 min_slots=llm_config.lora_min_slots,
                 max_slots=llm_config.lora_max_slots))
         self._policy_t0 = time.monotonic()
+        # Decode-throughput EWMA published through engine_stats()/gauges.
+        self._tokens_per_s = 0.0
+        self._tok_count = 0
+        self._tok_t0 = time.monotonic()
+        self._gauges = self._bind_gauges()
         # request_id -> per-request queue; the loop fans outputs out here.
         self._streams: Dict[str, queue.Queue] = {}
         # KV stream listener, always on: prefill servers stream populated
@@ -321,6 +352,29 @@ class LLMServer:
 
     # ---- engine loop -----------------------------------------------------
 
+    def _bind_gauges(self):
+        from ray_tpu_torch.runtime import metric_defs as md
+
+        tags = {"replica": self._replica_tag}
+        return {
+            "running": md.LLM_RUNNING.bind(tags),
+            "waiting": md.LLM_WAITING.bind(tags),
+            "prefilling": md.LLM_PREFILLING.bind(tags),
+            "free_kv_blocks": md.LLM_KV_FREE_BLOCKS.bind(tags),
+            "total_kv_blocks": md.LLM_KV_TOTAL_BLOCKS.bind(tags),
+            "prefix_hits": md.LLM_PREFIX_HITS.bind(tags),
+            "prefix_tokens_saved": md.LLM_PREFIX_TOKENS_SAVED.bind(tags),
+            "tokens_per_s": md.LLM_TOKENS_PER_S.bind(tags),
+        }
+
+    def _publish_gauges(self, s: Optional[Dict] = None):
+        if s is None:
+            with self._lock:
+                s = self.engine.stats()
+            s["tokens_per_s"] = round(self._tokens_per_s, 1)
+        for key, gauge in self._gauges.items():
+            gauge.set(s[key])
+
     def _engine_loop(self):
         with self._scope():
             self._run_loop()
@@ -348,9 +402,22 @@ class LLMServer:
                     q.put(e)
                 continue
             for out in outs:
+                self._tok_count += len(out.new_token_ids)
                 q = self._streams.get(out.request_id)
                 if q is not None:
                     q.put(out)
+            now = time.monotonic()
+            if now - self._tok_t0 >= 1.0:
+                rate = self._tok_count / (now - self._tok_t0)
+                self._tokens_per_s = (rate if self._tokens_per_s == 0.0
+                                      else 0.7 * self._tokens_per_s
+                                      + 0.3 * rate)
+                self._tok_count = 0
+                self._tok_t0 = now
+                try:
+                    self._publish_gauges()
+                except Exception:
+                    log.exception("publishing the server's gauges failed")
             if not busy:
                 time.sleep(0.002)
 
@@ -436,15 +503,22 @@ class LLMServer:
 
     def engine_stats(self) -> Dict:
         """The engine's load signal (what RouterCore and ReplicaPolicy
-        read), with the server's drain and handoff counts."""
+        read), with the server's decode rate, node, drain and handoff
+        counts; the same numbers go to the bound gauges."""
         with self._lock:
             s = self.engine.stats()
+        s["tokens_per_s"] = round(self._tokens_per_s, 1)
         s["replica"] = self._replica_tag
         s["draining"] = self._draining
+        s["node_id"] = _node_hex()
         s["sessions_migrated_out"] = self._sessions_migrated_out
         s["handoff_address"] = list(self._handoff.address)
         s["handoffs_adopted"] = self._handoff.handoffs_adopted
         s["handoffs_rejected"] = self._handoff.handoffs_rejected
+        try:
+            self._publish_gauges(s)
+        except Exception:
+            log.exception("publishing the server's gauges failed")
         return s
 
     def flight_records(self, limit: Optional[int] = None,
@@ -524,6 +598,9 @@ class LLMServer:
                                            None):
                     migrate_session(target_address, state, k, v,
                                     kv_dtype=kv_dtype, timeout=timeout)
+                    tracing.record_span(
+                        "llm:migration_pause", "llm", t_pause0, time.time(),
+                        request_id=rid, source=self._replica_tag, mode="kv")
                 migrated.append(rid)
                 self.engine.flight_records.append({
                     "t": t_pause0, "kind": "migration_pause",
@@ -677,16 +754,37 @@ def build_llm_deployment(llm_config: LLMConfig, name: str = "llm") -> Any:
 
 def build_routed_app(llm_config: LLMConfig, name: str = "v1-completions",
                      *, http: bool = True):
-    """The JAX package's router front (the LLMRouter deployment over the
-    engine tier and an optional prefill tier) is not ported yet."""
-    raise _unported("build_routed_app (the LLM router deployment and the "
-                    "prefill tier; ROADMAP.md queue 1 item 6.2)")
+    """Deploys the whole serving plane: `{name}-engine` (decode or
+    colocated replicas), `{name}-prefill` when disaggregate > 0 (that many
+    PrefillServer replicas of num_gpus_per_replica cards each), and the
+    `{name}` router deployment (llm/router.py LLMRouter) in front of them.
+    Returns the router's handle."""
+    from ray_tpu_torch.llm.disagg import PrefillServer
+    from ray_tpu_torch.llm.router import LLMRouter
+
+    tiers = [build_llm_deployment(llm_config, f"{name}-engine")]
+    prefill_name = None
+    if llm_config.disaggregate > 0:
+        prefill_name = f"{name}-prefill"
+        tiers.append(serve.deployment(PrefillServer).options(
+            name=prefill_name, num_replicas=llm_config.disaggregate,
+            num_gpus=llm_config.num_gpus_per_replica,
+            max_ongoing_requests=llm_config.max_batch_size,
+        ).bind(llm_config))
+    # Tiers first: the router resolves their replica handles lazily on the
+    # first request, and they must already be deployed by then.
+    serve.run(tiers)
+    router = serve.deployment(LLMRouter).options(
+        name=name, num_replicas=1,
+        max_ongoing_requests=8 * llm_config.max_batch_size,
+    ).bind(llm_config, f"{name}-engine", prefill_name)
+    return serve.run(router, http=http)
 
 
 def build_openai_app(llm_config: LLMConfig, name: str = "v1-completions"):
     """Deploys the engine and the HTTP ingress; POST /{name} serves
-    completions. routing="affinity" or disaggregate > 0 need the router
-    front (build_routed_app), which refuses."""
+    completions. With routing="affinity" or disaggregate > 0 the app gets
+    the router front (build_routed_app) instead of a bare replica fleet."""
     if llm_config.routing == "affinity" or llm_config.disaggregate > 0:
         return build_routed_app(llm_config, name)
     return serve.run(build_llm_deployment(llm_config, name), http=True)

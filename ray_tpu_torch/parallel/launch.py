@@ -280,21 +280,15 @@ def _follower_entry(target, rank, world, store_path, device, errors, args):
         os._exit(1)
 
 
-# NCCL worlds this process has joined. On 4 H100s (torch 2.11, CUDA 12.8)
-# the second one crashed the process (SIGSEGV) in DeviceMesh's
-# `split_group` of the new default group, after the first had been left
-# cleanly, so a process holds one.
-_nccl_worlds = 0
-
-
 class World:
     """The caller as rank 0 of a world of `size` ranks whose others run
     `target(rank, size, channel, *args)` until it returns (on a command of
     rank 0's choosing). `channel` sends rank 0's commands; `check()`
     raises a follower's traceback or death; `close(stop)` sends the stop
     command through `stop(channel)`, joins the followers (killing any that
-    do not leave within a minute) and leaves the world. On cards a process
-    joins one such world in its lifetime (`_nccl_worlds`)."""
+    do not leave within a minute) and leaves the world. A process may hold
+    one world after another (a mesh is built from per-axis groups,
+    parallel/mesh.py `_axis_groups`)."""
 
     def __init__(self, size: int, target: Callable, *args,
                  device: str = "cuda"):
@@ -307,12 +301,6 @@ class World:
                 raise ValueError(f"a world of {size} ranks takes {size} "
                                  f"cards; this machine has "
                                  f"{torch.cuda.device_count()}")
-            global _nccl_worlds
-            if _nccl_worlds:
-                raise RuntimeError(
-                    "this process already held an NCCL world, and a second "
-                    "one crashes it; start the next world in a new process")
-            _nccl_worlds += 1
         self.broken: Optional[str] = None
         self._stopping = False      # the followers were told to leave
         self._closing = False

@@ -64,12 +64,13 @@ _BACKEND_FOR = {"cuda": "nccl", "cpu": "gloo"}
 
 def build_mesh(config: MeshConfig, device="cuda"):
     """The named DeviceMesh over the default process group's ranks, in
-    rank order with `tp` innermost. Raises when the world size is not
+    rank order with `tp` innermost, made from one process group per axis
+    (`_axis_groups`). Raises when the world size is not
     `config.num_devices`, when CUDA is asked for but missing, or when the
     process group lacks the backend for `device` (NCCL for CUDA, gloo for
     the CPU)."""
     import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.device_mesh import DeviceMesh
 
     from ray_tpu_torch.ops import resolve_device
 
@@ -86,8 +87,33 @@ def build_mesh(config: MeshConfig, device="cuda"):
         raise RuntimeError(
             f"a mesh on {dev.type} needs the {want} backend; the process "
             f"group runs {dist.get_backend()!r}")
-    return init_device_mesh(dev.type, config.axis_sizes(),
-                            mesh_dim_names=AXES)
+    sizes = config.axis_sizes()
+    layout = torch.arange(n).reshape(sizes)
+    return DeviceMesh.from_group(_axis_groups(layout), dev.type,
+                                 mesh=layout, mesh_dim_names=AXES)
+
+
+def _axis_groups(layout: torch.Tensor) -> list:
+    """This rank's process group along each axis of `layout` (global
+    ranks in mesh order). Every rank makes every group, axis by axis and
+    slice by slice in one order (new_group is collective); an axis that
+    spans the whole world takes the default group. init_device_mesh
+    builds these through `split_group` instead, which on H100s (torch
+    2.11, CUDA 12.8) crashed the second NCCL world of a process."""
+    import torch.distributed as dist
+
+    me = dist.get_rank()
+    groups = []
+    for axis in range(layout.dim()):
+        slices = layout.movedim(axis, -1).reshape(-1, layout.shape[axis])
+        mine = None
+        for ranks in slices.tolist():
+            group = (dist.group.WORLD if len(ranks) == layout.numel()
+                     else dist.new_group(ranks))
+            if me in ranks:
+                mine = group
+        groups.append(mine)
+    return groups
 
 
 def mesh_device(mesh) -> torch.device:

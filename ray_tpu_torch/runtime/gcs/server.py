@@ -3,7 +3,8 @@
 The port's copy of ray_tpu/runtime/gcs/server.py, cut to the node table
 and heartbeats (with the versioned resource view), KV, pubsub, jobs,
 actors (create, get, kill, worker death, restart), placement groups,
-object locations and shutdown. The JAX GCS's other handlers are
+object locations, the cluster event ring and shutdown. The JAX GCS's
+other handlers are
 registered as refusals (UNPORTED_HANDLERS).
 
 Reference analog: src/ray/gcs/gcs_server/ (GcsServer gcs_server.h:89). One per
@@ -31,14 +32,13 @@ logger = logging.getLogger(__name__)
 
 # Handlers of the JAX package's GCS not ported yet (ROADMAP.md queue 1
 # item 6): the cluster prefix store, checkpoint shards, metrics history,
-# link utilization, alerts, cluster events, task events and the timeline,
-# the wait graph, autoscaler demand, and drain.
+# link utilization, alerts, task events and the timeline, the wait graph,
+# autoscaler demand, and drain.
 UNPORTED_HANDLERS = (
     "prefix_upsert", "prefix_lookup", "prefix_purge",
     "register_checkpoint_shards", "list_checkpoint_shards",
     "report_metrics2", "metrics_history", "metrics_history_stats",
-    "link_utilization", "list_alerts", "report_events", "list_events",
-    "report_task_events", "report_task_events2", "task_event_stats",
+    "link_utilization", "list_alerts", "report_task_events", "report_task_events2", "task_event_stats",
     "list_tasks", "get_task", "task_timeline", "wait_graph",
     "cluster_demand", "request_resources", "get_requested_resources",
     "drain_node")
@@ -486,6 +486,11 @@ class GcsServer:
         self._persist_node(rec)
         self._bump_view(rec)
         logger.warning("node %s marked dead: %s", node_id.hex()[:12], reason)
+        from ray_tpu_torch.runtime import events as events_mod
+
+        self._record_event(events_mod.make_event(
+            events_mod.NODE_DEAD, f"node {node_id.hex()[:12]} dead: {reason}",
+            severity=events_mod.ERROR, source="gcs", node_id=node_id))
         # Relocation entries pointing AT the dead node are stale.
         table = getattr(self, "_object_relocations", None)
         if table:
@@ -531,6 +536,46 @@ class GcsServer:
 
     async def handle_kv_keys(self, conn, prefix: bytes = b""):
         return {"keys": [k for k in self._kv if k.startswith(prefix)]}
+
+    # ---- cluster event bus (runtime/events.py) ---------------------------
+
+    def _record_event(self, ev: dict):
+        """Append one typed cluster event to the bounded ring (see
+        runtime/events.py for the record shape)."""
+        from collections import deque
+
+        from ray_tpu_torch.config import cfg
+
+        store = getattr(self, "_cluster_events", None)
+        if store is None:
+            store = self._cluster_events = deque(
+                maxlen=cfg().cluster_events_max)
+        store.append(ev)
+
+    async def handle_report_events(self, conn, events):
+        """Batched typed cluster events from any component (best-effort
+        emitters)."""
+        for ev in events:
+            if isinstance(ev, dict):
+                self._record_event(dict(ev))
+        return {"ok": True}
+
+    async def handle_list_events(self, conn, event_type=None, severity=None,
+                                 source=None, limit: int = 100):
+        """Newest-first filtered view of the cluster event ring."""
+        store = getattr(self, "_cluster_events", None) or ()
+        out = []
+        for ev in reversed(store):
+            if event_type is not None and ev.get("type") != event_type:
+                continue
+            if severity is not None and ev.get("severity") != severity:
+                continue
+            if source is not None and ev.get("source") != source:
+                continue
+            out.append(ev)
+            if len(out) >= limit:
+                break
+        return out
 
     # ---- pubsub ----------------------------------------------------------
 

@@ -1,0 +1,114 @@
+"""Runtime metric definitions: the central table of what the port measures.
+
+The port's copy of the Serve and LLM entries of
+ray_tpu/runtime/metric_defs.py (reference analog:
+src/ray/stats/metric_defs.cc): components import these and bump them,
+and every process's metrics ride the snapshot path of util/metrics.py.
+The names are the JAX package's, so a rollup or a dashboard reads both
+packages' snapshots alike.
+
+The runtime's own metrics (tasks, leases, workers, the object store and
+plane, data, collectives) and the checkpoint plane's wait for the
+runtime's metrics history (ROADMAP.md queue 1 item 6.4), as do the prefix
+store tiers' counters (item 6.3).
+"""
+
+from __future__ import annotations
+
+from ray_tpu_torch.util.metrics import Counter, Gauge, Histogram
+
+# -- serve / llm -----------------------------------------------------------
+
+SERVE_REQUESTS = Counter(
+    "ray_tpu_serve_requests_total", "requests routed through handles",
+    tag_keys=("deployment",))
+LLM_TOKENS_GENERATED = Counter(
+    "ray_tpu_llm_tokens_generated_total", "tokens sampled by LLM engines")
+LLM_STEP_COMPILES = Counter(
+    "ray_tpu_llm_step_compiles_total",
+    "new step-shape signatures (CUDA graph captures or first eager runs; "
+    "warmup pays these, any growth in the steady-state loop is a stall "
+    "worth chasing)")
+
+# Speculative decoding (engine n-gram drafts + unified-tick acceptance
+# sampling): the accepted/proposed ratio is the speculation win.
+LLM_SPEC_PROPOSED = Counter(
+    "ray_tpu_llm_spec_proposed_total",
+    "draft tokens submitted to speculative verification")
+LLM_SPEC_ACCEPTED = Counter(
+    "ray_tpu_llm_spec_accepted_total",
+    "draft tokens accepted by speculative verification")
+
+# Per-replica engine depth + KV occupancy: the numbers
+# LLMServer.engine_stats() feeds the router, pushed as gauges.
+LLM_RUNNING = Gauge(
+    "ray_tpu_llm_running", "requests in decode on this replica",
+    tag_keys=("replica",))
+LLM_WAITING = Gauge(
+    "ray_tpu_llm_waiting", "requests queued before prefill on this replica",
+    tag_keys=("replica",))
+LLM_PREFILLING = Gauge(
+    "ray_tpu_llm_prefilling", "requests mid-chunked-prefill on this replica",
+    tag_keys=("replica",))
+LLM_KV_FREE_BLOCKS = Gauge(
+    "ray_tpu_llm_kv_free_blocks", "free KV cache pages on this replica",
+    tag_keys=("replica",))
+LLM_KV_TOTAL_BLOCKS = Gauge(
+    "ray_tpu_llm_kv_total_blocks", "total KV cache pages on this replica",
+    tag_keys=("replica",))
+LLM_PREFIX_HITS = Gauge(
+    "ray_tpu_llm_prefix_hits", "prefix-cache block hits (cumulative)",
+    tag_keys=("replica",))
+LLM_PREFIX_TOKENS_SAVED = Gauge(
+    "ray_tpu_llm_prefix_tokens_saved",
+    "prompt tokens skipped via prefix cache (cumulative)",
+    tag_keys=("replica",))
+LLM_TOKENS_PER_S = Gauge(
+    "ray_tpu_llm_tokens_per_s", "decode throughput EWMA on this replica",
+    tag_keys=("replica",))
+
+# Router plane (llm/router.py) + disaggregated KV handoffs (llm/disagg.py).
+LLM_ROUTER_SHED = Counter(
+    "ray_tpu_llm_router_shed_total",
+    "requests shed by SLO admission (projected TTFT over the SLO)",
+    tag_keys=("deployment",))
+LLM_ROUTER_AFFINITY = Counter(
+    "ray_tpu_llm_router_affinity_total",
+    "router picks by prefix/session-affinity outcome",
+    tag_keys=("outcome",))                       # hit | miss
+LLM_KV_HANDOFFS = Counter(
+    "ray_tpu_llm_kv_handoffs_total",
+    "prefill->decode KV page handoffs adopted")
+
+# Per-request latency attribution (llm/engine.py _finish_trace): TTFT by
+# queue/prefill/handoff and the mean inter-token gap by decode/stall.
+LLM_TTFT_BREAKDOWN_MS = Histogram(
+    "ray_tpu_llm_ttft_breakdown_ms",
+    "per-request time-to-first-token by phase: queue (submit->admit), "
+    "prefill (admit->first token), handoff (disagg KV stream gaps)",
+    boundaries=[0.1, 0.5, 1, 5, 10, 50, 100, 500, 1000, 5000],
+    tag_keys=("phase",))                         # queue | prefill | handoff
+LLM_ITL_BREAKDOWN_MS = Histogram(
+    "ray_tpu_llm_itl_breakdown_ms",
+    "per-request MEAN inter-token gap by phase: decode (engine ticks) and "
+    "stall (migration pauses amortized over the request's gaps)",
+    boundaries=[0.1, 0.5, 1, 5, 10, 50, 100, 500, 1000],
+    tag_keys=("phase",))                         # decode | stall
+
+# Fleet resilience (llm/router.py FleetSupervisor).
+LLM_FAILOVERS = Counter(
+    "ray_tpu_llm_failovers_total",
+    "in-flight requests replayed on a surviving replica after a failure",
+    tag_keys=("deployment",))
+LLM_SESSIONS_MIGRATED = Counter(
+    "ray_tpu_llm_sessions_migrated_total",
+    "live sessions moved replica->replica (KV pages over the drain plane)",
+    tag_keys=("deployment",))
+LLM_REPLICAS_HEALTHY = Gauge(
+    "ray_tpu_llm_replicas_healthy",
+    "replicas the router currently considers live and routable",
+    tag_keys=("deployment",))
+
+
+ALL_METRICS = [v for v in list(globals().values())
+               if isinstance(v, (Counter, Gauge, Histogram))]

@@ -5,9 +5,9 @@ python/ray/serve/handle.py:625 DeploymentHandle +
 router.py:578/pow_2_scheduler.py:52, power-of-two-choices on queue
 length). Client-side: the handle tracks its own in-flight count per
 replica and picks the lighter of two random replicas — the same
-load-balancing rule without a probe round-trip. The JAX handle also counts
-each request in the SERVE_REQUESTS metric; the port has no metrics
-registry yet (ROADMAP.md queue 1 item 6.4), so it counts nothing.
+load-balancing rule without a probe round-trip. Each `remote` call counts
+in the SERVE_REQUESTS metric (runtime/metric_defs.py), tagged with the
+deployment.
 """
 
 from __future__ import annotations
@@ -193,5 +193,9 @@ class DeploymentHandle:
         idx = self._pick_replica()
         replica = self._replicas[idx]
         self._inflight[idx] = self._inflight.get(idx, 0) + 1
+        from ray_tpu_torch.runtime import metric_defs
+
+        metric_defs.SERVE_REQUESTS.inc(
+            tags={"deployment": self.deployment_name})
         ref = replica.handle_request.remote(self.method_name, args, kwargs)
         return DeploymentResponse(ref, lambda i=idx: self._on_done(i))

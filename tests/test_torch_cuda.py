@@ -23,7 +23,8 @@ replay after `load_adapter` or `update_weights` reads the new values,
 `resize` captures once, and pages gathered off the card scatter back
 byte-exactly. The ring's chunk steps and merges equal whole-sequence
 flash attention, and a train step on a one-rank NCCL mesh equals the
-single-card step. A pipeline with stages on cuda:0 and the last card
+single-card step; one process starts and closes tensor-parallel worlds
+of 2 and 4 ranks one after another. A pipeline with stages on cuda:0 and the last card
 equals the single-card step and launches the flash kernels as its
 schedule says.
 """
@@ -874,3 +875,36 @@ def test_pipeline_stages_on_cards_equal_one_card_step(cuda, interleave):
     assert ((moved - ref).norm() / ref.norm()).item() <= 1e-3
     assert max((a - b).abs().max().item()
                for a, b in zip(merged, want)) <= 2 * lr
+
+
+def test_two_tensor_parallel_worlds_in_one_process(cuda):
+    """One process holds one NCCL world after another: tensor-parallel
+    engines of 2 ranks, then of every card up to 4, each started and
+    closed in this process (CUDA graphs on), give one card's greedy
+    tokens, and no process group is left after each."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.llm.serving import LLMConfig, build_engine
+    from ray_tpu_torch.llm.sampling import SamplingParams
+    from ray_tpu_torch.models import llama
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 or more GPUs (a tensor-parallel world)")
+    config = llama.LlamaConfig.tiny(d_model=512, n_heads=8, n_kv_heads=4,
+                                    dtype=torch.float32)
+    prompts = [[(5 * s + 3 * i) % config.vocab_size for i in range(9 + s)]
+               for s in range(3)]
+    got = {}
+    for tp in (1, 2, min(4, torch.cuda.device_count()), 2):
+        engine = build_engine(LLMConfig(
+            model_config=config, tensor_parallel=tp, seed=3,
+            num_kv_blocks=64, block_size=16, max_batch_size=4,
+            prefill_chunk=16, warmup_buckets="light",
+            cluster_prefix_store=False))
+        try:
+            outs = engine.generate(prompts, SamplingParams(max_tokens=8))
+        finally:
+            engine.runner.close()
+        assert not dist.is_initialized()
+        got.setdefault(tp, []).append([o.output_token_ids for o in outs])
+    assert all(run == got[1][0] for runs in got.values() for run in runs)

@@ -152,8 +152,9 @@ def test_send_handoff_writes_jax_bytes(weights, dtype, trace):
     """For one state dict, one pair of pages and one trace context, the
     port's send_handoff and JAX's put the same bytes on the socket (bf16:
     the port's uint16 bits labelled "bfloat16" against ml_dtypes bf16),
-    and both read back as the same frames. JAX's spans run with tracing
-    off, as the port's do."""
+    and both read back as the same frames. Both packages' spans run with
+    tracing off: on, each handoff span mints a random span id, which the
+    frame carries."""
     import ml_dtypes
 
     from ray_tpu.llm import disagg as jd
@@ -166,8 +167,9 @@ def test_send_handoff_writes_jax_bytes(weights, dtype, trace):
         v = rng.integers(0, 1 << 16, size=v.shape, dtype=np.uint16)
     ctx = TRACES[trace](state["id"])
     recorded = {}
-    was = jtr.enabled()
+    was = (jtr.enabled(), ttr.enabled())
     jtr.set_enabled(False)
+    ttr.set_enabled(False)
     try:
         for pkg in ("port", "jax"):
             rec = Recorder()
@@ -186,7 +188,8 @@ def test_send_handoff_writes_jax_bytes(weights, dtype, trace):
             assert ack["ok"]
             recorded[pkg] = (rec.join(), rec.frames)
     finally:
-        jtr.set_enabled(was)
+        jtr.set_enabled(was[0])
+        ttr.set_enabled(was[1])
     assert recorded["port"][0] == recorded["jax"][0]
     (_, meta), (_, kflat), (_, vflat) = recorded["port"][1]
     assert meta["kv_dtype"] == dtype

@@ -111,13 +111,35 @@ def test_serve_modules_import_neither_torch_jax_nor_ray_tpu():
     assert res.returncode == 0, res.stderr
 
 
+def test_observability_modules_import_neither_torch_jax_nor_ray_tpu():
+    """The cluster event bus, the metrics registry and its definitions,
+    the state API and the OpenAI router load no torch: the GCS, the
+    controller and every runtime process may import them."""
+    names = ["ray_tpu_torch.runtime.events", "ray_tpu_torch.util.metrics",
+             "ray_tpu_torch.runtime.metric_defs", "ray_tpu_torch.state",
+             "ray_tpu_torch.state.api", "ray_tpu_torch.llm.openai_router",
+             "ray_tpu_torch.runtime.gcs.server"]
+    assert set(names) <= {name for name, _ in _modules()}
+    code = (
+        "import importlib, sys\n"
+        f"for n in {names!r}: importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'jaxlib', 'ray_tpu'))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
 def test_runtime_sources_name_no_jax_runtime_variable_or_path():
     """The port's runtime names its own environment variables
     (RAY_TPU_TORCH_*) and its own base directory, so it never reads or
     writes the JAX runtime's token, config, address, store directory or
     session files in a shared process or host."""
     sources = [PKG / "config.py", PKG / "__init__.py"] + sorted(
-        p for d in ("core", "runtime", "utils")
+        p for d in ("core", "runtime", "utils", "util", "state")
         for p in (PKG / d).rglob("*.py"))
     pattern = re.compile(r"RAY_TPU_(?!TORCH_)|/tmp/ray_tpu/")
     offenders = []
@@ -151,6 +173,9 @@ def test_train_modules_are_covered_and_refuse_a_missing_card():
     assert {"ray_tpu_torch.train.optim", "ray_tpu_torch.train.step",
             "ray_tpu_torch.llm.lora", "ray_tpu_torch.llm.prefix_store",
             "ray_tpu_torch.llm.disagg", "ray_tpu_torch.llm.router",
+            "ray_tpu_torch.llm.openai_router", "ray_tpu_torch.state.api",
+            "ray_tpu_torch.runtime.events", "ray_tpu_torch.util.metrics",
+            "ray_tpu_torch.runtime.metric_defs",
             "ray_tpu_torch.llm.replica_policy",
             "ray_tpu_torch.collective.cpu_group",
             "ray_tpu_torch.runtime.wire", "ray_tpu_torch.runtime.chaos",

@@ -159,7 +159,9 @@ def test_mesh_config_auto_matches_jax(n, kw):
 
 def test_mesh_build(world):
     """Each rank's coordinates are its device's position in the JAX
-    package's mesh of the same shape over devices 0-3 (tp innermost)."""
+    package's mesh of the same shape over devices 0-3 (tp innermost), and
+    its group along each axis holds the ranks torch's init_device_mesh
+    puts there."""
     import jax
 
     from ray_tpu.parallel import mesh as jmesh
@@ -174,6 +176,10 @@ def test_mesh_build(world):
         assert sizes == cfg.axis_sizes()
         assert coords == where[jax.devices()[rank].id], rank
         assert "wants 5 devices, have 4" in info["wrong_world"]
+        for axis, (got, ref) in info["groups"].items():
+            assert got == ref, (rank, axis)
+        assert tuple(info["coordinates"][0]) == tuple(
+            info["coordinates"][1]) == coords
 
 
 COLLECTIVE_CHECKS = {

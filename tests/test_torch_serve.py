@@ -369,20 +369,14 @@ def test_llm_config_deployment_fields_and_build_llm_deployment_equal_jax():
     assert "__call__" in vars(LLMServer)
 
 
-@pytest.mark.parametrize("case", ["build_routed_app", "affinity",
-                                  "disaggregate", "grpc"])
+@pytest.mark.parametrize("case", ["grpc"])
 def test_unported_serving_fronts_refuse(case):
-    """What needs the LLM router (queue 1 item 6.2) or grpcio refuses with
-    the port's _unported ValueError before any cluster work."""
-    from ray_tpu_torch.llm import LLMConfig, build_openai_app, build_routed_app
-
+    """What needs grpcio (queue 1 item 6.4) refuses with the port's
+    _unported ValueError before any cluster work. The router front
+    (build_routed_app, routing="affinity", disaggregate > 0) is ported:
+    tests/test_torch_fleet.py holds it to the JAX package's and
+    tests/test_torch_router_cluster.py runs it on the port's runtime."""
     calls = {
-        "build_routed_app": (lambda: build_routed_app(LLMConfig()),
-                             r"build_routed_app .*item 6\.2"),
-        "affinity": (lambda: build_openai_app(LLMConfig(routing="affinity")),
-                     r"LLM router .*item 6\.2"),
-        "disaggregate": (lambda: build_openai_app(LLMConfig(disaggregate=1)),
-                         r"LLM router .*item 6\.2"),
         "grpc": (tserve.start_grpc_proxy, r"gRPC ingress .*item 6\.4"),
     }
     fn, pattern = calls[case]

@@ -21,7 +21,7 @@ def prompt(seed, n=17, vocab=128):
     return [(seed * 7 + 3 * i + seed) % vocab for i in range(n)]
 
 
-def make_weights(dtype="float32"):
+def make_weights(dtype="float32", max_seq=64):
     """(JAX config, port config, port params) of the tiny Llama: the JAX
     server draws jax.random.key(0) itself, the port gets the same values
     through params_from_numpy."""
@@ -30,10 +30,10 @@ def make_weights(dtype="float32"):
 
     from ray_tpu.models import llama as jl
 
-    jconfig = jl.LlamaConfig.tiny(vocab_size=128, max_seq=64,
+    jconfig = jl.LlamaConfig.tiny(vocab_size=128, max_seq=max_seq,
                                   dtype=getattr(jnp, dtype))
     jparams = jl.init_params(jconfig, jax.random.key(0))
-    tconfig = tl.LlamaConfig.tiny(vocab_size=128, max_seq=64,
+    tconfig = tl.LlamaConfig.tiny(vocab_size=128, max_seq=max_seq,
                                   dtype=getattr(torch, dtype))
     tparams = tl.params_from_numpy(jax.tree.map(np.asarray, jparams),
                                    tconfig, device="cpu")

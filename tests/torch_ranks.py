@@ -54,9 +54,19 @@ def _np(tree):
 
 
 def mesh_info(rank, world, mesh):
+    from torch.distributed.device_mesh import init_device_mesh
+
     m = build_mesh(MeshConfig(**mesh), device="cpu")
     info = {a: (m.size(i), m.get_local_rank(a))
             for i, a in enumerate(("dp", "fsdp", "sp", "ep", "tp"))}
+    # build_mesh makes its per-axis groups itself (no split_group): the
+    # same ranks along every axis as torch's init_device_mesh.
+    ref = init_device_mesh("cpu", MeshConfig(**mesh).axis_sizes(),
+                           mesh_dim_names=m.mesh_dim_names)
+    ranks = torch.distributed.get_process_group_ranks
+    info["groups"] = {a: (ranks(m.get_group(a)), ranks(ref.get_group(a)))
+                      for a in m.mesh_dim_names}
+    info["coordinates"] = (m.get_coordinate(), ref.get_coordinate())
     try:
         build_mesh(MeshConfig(fsdp=world + 1), device="cpu")
         info["wrong_world"] = None
