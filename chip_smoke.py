@@ -13,6 +13,7 @@
     python3 chip_smoke.py --phases device,build,runtime
     python3 chip_smoke.py --phases device,build,serve
     python3 chip_smoke.py --phases device,build,router
+    python3 chip_smoke.py --phases device,build,prefix_store
     python3 chip_smoke.py --phases device --turns parent,.,.,parent
     python3 chip_smoke.py --phases device --turns a,b,b,a --turn-legs server
 
@@ -75,7 +76,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
                exported after 8 tokens and adopted by a second engine
                decodes on; a 96-page pool whose repeated 1024-token
                prompt is evicted by fillers, spilled and promoted from
-               the host tier (prefill computed == prompt - saved); an
+               the host tier, twice a round over two rounds, each first
+               token timed against the cold one (prefill computed ==
+               prompt - saved; `_promote_run`); an
                update_weights in place (no capture) that drops both
                tiers, then the old weights back.
   7. disagg    disaggregated prefill/decode and live migration on one
@@ -279,6 +282,24 @@ Phases, in order; any failure raises and the exit code is non-zero:
                the engine replica = n_layers x ticks, every request handed
                off) gives the in-process tokens. Skipped on one card, and
                logged. Nothing of the session is left after shutdown.
+               The app runs on the default cluster prefix store: (b) its
+               replica publishes a shared prompt to the GCS table under
+               fillers, is killed and restarted, and the new replica
+               adopts the prompt (16 tokens prefilled, K5 replays); no
+               row is left after serve.delete. With 2+ cards (c): a new
+               router sends a published prompt back to its owner through
+               the table's hint; after the owner's kill the survivor
+               adopts it.
+  prefix_store (after pages) the cluster prefix store: the runtime up in
+               this process, two in-process 8B servers on its GCS table;
+               the owner's host tier publishes a 1024-token prompt's 64
+               blocks under fillers, the survivor adopts them (16 tokens
+               prefilled, the llm:prefix_fetch span's ms and GB/s, TTFT
+               adopted vs cold, K5 from 0 all replays, tokens n of 16);
+               a narrow fp32 pair the same way, tokens equal. With 2+
+               cards (c): a tensor_parallel=2 server takes migrations
+               into and out of it, a prefill handoff and a table
+               adoption, each with one card's fp32 tokens.
 The kernel phase also holds the three flash kernels (forward, dQ, dK/dV)
 against their plain versions in bf16 and fp32 at the train shape (4, 2048,
 16/8 heads, 128), with Llama-3-8B heads (32/8), a ragged tail (1000),
@@ -296,7 +317,8 @@ split_chunk_batch and split_verify): run parent, change, change, parent
 to compare two versions on one card. `--turn-legs server` (or
 `kernels,server`) runs, in each child, the server phase's graphed
 Llama-3-8B server on the tree's package instead: the five-request mix
-three times and decode steps of 8 rows (`_decode_walls`).
+three times and decode steps of 8 rows (`_decode_walls`);
+`--turn-legs promote` the host tier's promotion (`_promote_run`).
 Prints a `{"kernels": [...]}` line, then, last, the device line
 `{"ok": true, "device": {...}}`; `--out FILE` also writes every result as
 JSON. Imports nothing of jax or ray_tpu.
@@ -319,9 +341,9 @@ import urllib.request
 import zlib
 
 ALL_PHASES = ("device", "build", "kernel", "server", "lora", "pages",
-              "disagg", "split", "identity", "train", "pipeline", "rlhf",
-              "resnet", "mesh", "checkpoint", "tp", "runtime", "serve",
-              "router")
+              "prefix_store", "disagg", "split", "identity", "train",
+              "pipeline", "rlhf", "resnet", "mesh", "checkpoint", "tp",
+              "runtime", "serve", "router")
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12,     # dense bf16 tensor-core rate
             "float32": 67e12}       # fp32 outside the tensor cores
@@ -974,7 +996,8 @@ def run_turns(trees, legs=("kernels",)):
     e.g. a parent commit's unpacked copy) in a child process of its own,
     in the order given (parent, change, change, parent): with the
     "kernels" leg the bf16 kernels' ms per TURN_CASES pair, with the
-    "server" leg the server mix and decode walls (`_turn_server`)."""
+    "server" leg the server mix and decode walls (`_turn_server`), with
+    the "promote" leg the host tier's promotion (`_turn_promote`)."""
     here = os.path.abspath(__file__)
     rows = []
     for tree in trees:
@@ -984,8 +1007,10 @@ def run_turns(trees, legs=("kernels",)):
             capture_output=True, text=True, timeout=900)
         lines = {x.split(" ", 1)[0]: x.split(" ", 1)[1]
                  for x in proc.stdout.splitlines()
-                 if x.startswith(("TURN ", "TURN_SERVER "))}
-        want = {"kernels": "TURN", "server": "TURN_SERVER"}
+                 if x.startswith(("TURN ", "TURN_SERVER ",
+                                  "TURN_PROMOTE "))}
+        want = {"kernels": "TURN", "server": "TURN_SERVER",
+                "promote": "TURN_PROMOTE"}
         if proc.returncode != 0 or any(want[leg] not in lines
                                        for leg in legs):
             raise RuntimeError(f"turn in {tree} failed:\n{proc.stdout}"
@@ -1008,6 +1033,13 @@ def run_turns(trees, legs=("kernels",)):
                 + ", ".join(f"{r['itl_p50_ms']:.2f}"
                             for r in row["server"]["runs"])
                 + f"; decode step ms {row['server']['decode_walls_ms']}")
+        if "promote" in legs:
+            row["promote"] = json.loads(lines["TURN_PROMOTE"])
+            log(f"turn promote {tree}: first token ms (cold, promoted, "
+                "again) by round: " + "; ".join(
+                    ", ".join(f"{x[k]['ttft_ms']:.1f}"
+                              for k in ("cold", "promoted", "again"))
+                    for x in row["promote"]["promote_rounds"]))
         rows.append(row)
     RESULTS["turns"] = rows
 
@@ -1075,14 +1107,14 @@ def _llama8b(torch):
 
 def _engine_config(config, **kw):
     """The smoke's serving configuration: block 16, 512 KV pages, max
-    batch 8, prefill chunk 128; the cluster prefix tier off (not ported:
-    a server inside the port's runtime refuses it)."""
+    batch 8, prefill chunk 128; the prefix tiers at LLMConfig's defaults
+    (a 32 MB host tier, and the cluster table where the port's runtime is
+    up in the server's process)."""
     from ray_tpu_torch.llm.serving import LLMConfig
 
     return LLMConfig(**dict(dict(
         model_config=config, block_size=16, num_kv_blocks=512,
-        max_batch_size=8, prefill_chunk=128, device="cuda",
-        cluster_prefix_store=False), **kw))
+        max_batch_size=8, prefill_chunk=128, device="cuda"), **kw))
 
 
 def _mix_requests(config, tag, seed=SEED, loras=None):
@@ -1453,6 +1485,133 @@ def _timed(torch, fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def _promote_run(torch, config, params, rounds=2):
+    """The host prefix tier on the Llama-3-8B graphed engine (bf16) with a
+    96-page pool: per round a new 1024-token system prompt runs cold, two
+    new 700-token fillers evict its parked blocks to host RAM, the prompt
+    comes back promoted from the tier, two more fillers, and it comes back
+    promoted again. Each first token is timed with the promotion itself
+    (`_promote_prefix`, synchronised), the spills made meanwhile (the
+    parked filler blocks that the promoted ones replace) and the graphs
+    captured. Returns (engine, numbers); the numbers'
+    top level is round 0. Uses only what the package has had since its
+    host prefix tier, so `--turn-legs promote` runs it on older trees."""
+    import numpy as np
+
+    from ray_tpu_torch.llm import prefix_store
+    from ray_tpu_torch.llm.sampling import SamplingParams
+    from ray_tpu_torch.llm.serving import build_engine
+
+    h = build_engine(_engine_config(config, warmup_buckets="light",
+                                    num_kv_blocks=96), params=params)
+    h.attach_prefix_store(host_tier=prefix_store.HostPrefixTier(512 << 20))
+    spill_ms, spilled, promote_ms = [], [], []
+    spill, promote = h.block_manager.spill_fn, h._promote_prefix
+
+    def timed_spill(*args):
+        # Older trees call the hook once a block (bid, digest); this one
+        # once a batch ([(bid, digest), ...]).
+        t0 = time.perf_counter()
+        spill(*args)
+        spill_ms.append((time.perf_counter() - t0) * 1e3)
+        spilled.append(len(args[0]) if len(args) == 1 else 1)
+
+    def timed_promote(req):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = promote(req)
+        torch.cuda.synchronize()
+        promote_ms.append((time.perf_counter() - t0) * 1e3)
+        return got
+
+    h.block_manager.spill_fn = timed_spill
+    h._promote_prefix = timed_promote
+
+    def first_token(prompt, rid):
+        def once():
+            h.add_request(prompt, SamplingParams(max_tokens=1),
+                          request_id=rid)
+            got = None
+            while h.has_unfinished():
+                for o in h.step():
+                    if o.request_id == rid and o.finished:
+                        got = o.output_token_ids
+            return got
+        del promote_ms[:]
+        n0 = len(spill_ms)
+        s0, c0 = h.stats(), h.runner.step_compiles
+        tok, ms = _timed(torch, once)
+        s1 = h.stats()
+        hits = s1["host_prefix_hits"] - s0["host_prefix_hits"]
+        saved = (s1["host_prefix_tokens_saved"]
+                 - s0["host_prefix_tokens_saved"]
+                 + s1["prefix_tokens_saved"] - s0["prefix_tokens_saved"])
+        computed = (s1["prefill_tokens_computed"]
+                    - s0["prefill_tokens_computed"])
+        return tok, dict(ttft_ms=ms, hits=hits, saved=saved,
+                         computed=computed,
+                         captures=h.runner.step_compiles - c0,
+                         promote_ms=sum(promote_ms),
+                         spill_ms=sum(spill_ms[n0:]),
+                         spilled=sum(spilled[n0:]))
+
+    def fill(seed, tag):
+        for i, f in enumerate(_prompts([700, 700], config.vocab_size,
+                                       seed)):
+            first_token(f, f"{tag}-{i}")
+
+    rows = []
+    for r in range(rounds):
+        system = _prompts([1024], config.vocab_size, SEED + 52 + 10 * r)[0]
+        tok0, cold = first_token(system, f"sys{r}-cold")
+        fill(SEED + 53 + 10 * r, f"fill{r}a")
+        tok1, promoted = first_token(system, f"sys{r}-promoted")
+        fill(SEED + 54 + 10 * r, f"fill{r}b")
+        tok2, again = first_token(system, f"sys{r}-again")
+        for label, row in (("promoted", promoted), ("again", again)):
+            if (row["hits"] <= 0 or not spill_ms
+                    or row["computed"] != len(system) - row["saved"]):
+                raise AssertionError(f"pages host tier round {r} {label}: "
+                                     f"{row}, spills {len(spill_ms)}")
+        rows.append(dict(cold=cold, promoted=promoted, again=again,
+                         same_first_token=tok0 == tok1 == tok2))
+        log(f"pages: host tier round {r}: first token cold "
+            f"{cold['ttft_ms']:.1f} ms ({cold['captures']} graphs "
+            f"captured), promoted {promoted['ttft_ms']:.1f} ms "
+            f"({promoted['hits']} blocks, promotion "
+            f"{promoted['promote_ms']:.1f} ms, {promoted['captures']} "
+            f"graphs captured, {promoted['computed']} tokens computed), "
+            f"promoted again {again['ttft_ms']:.1f} ms (promotion "
+            f"{again['promote_ms']:.1f} ms, {again['captures']} captured); "
+            f"same first token: {tok0 == tok1 == tok2}")
+    s = h.stats()
+    block_mib = s["host_prefix_bytes"] / max(s["host_prefix_entries"],
+                                             1) / 2**20
+    log(f"pages: host tier: {sum(spilled)} blocks spilled in "
+        f"{len(spill_ms)} calls ({sum(spill_ms):.1f} ms in all, median "
+        f"{float(np.median(spill_ms)):.2f} ms a call; {block_mib:.1f} MiB "
+        f"a block)")
+    first = rows[0]
+    return h, dict(spills=sum(spilled), spill_calls=len(spill_ms),
+                   spill_ms_total=sum(spill_ms),
+                   spill_ms_median=float(np.median(spill_ms)),
+                   host_hits=first["promoted"]["hits"],
+                   tokens_saved=first["promoted"]["saved"],
+                   prefill_computed=first["promoted"]["computed"],
+                   ttft_cold_ms=first["cold"]["ttft_ms"],
+                   ttft_promoted_ms=first["promoted"]["ttft_ms"],
+                   promote_rounds=rows)
+
+
+def _turn_promote(torch):
+    """Child of --turns, promote leg: `_promote_run` on whichever
+    ray_tpu_torch this process imports. Prints one TURN_PROMOTE line."""
+    config, params = _llama8b(torch)
+    h, numbers = _promote_run(torch, config, params)
+    del h
+    print("TURN_PROMOTE " + json.dumps(numbers), flush=True)
+
+
 def phase_pages(torch):
     """The KV page plane on the Llama-3-8B graphed engine (bf16): pages
     through the codec and back, a request moved between two engines, the
@@ -1535,50 +1694,8 @@ def phase_pages(torch):
                adopt_ms=adopt_ms, adopted_equal=same)
     del a
     gc.collect()
-    # Host tier: a 96-page pool; a 1024-token system prompt's parked
-    # blocks are evicted by two 700-token fillers (spilled to host RAM);
-    # the repeated system prompt is promoted from the tier.
-    h = build_engine(_engine_config(config, warmup_buckets="light",
-                                    num_kv_blocks=96), params=params)
-    h.attach_prefix_store(host_tier=prefix_store.HostPrefixTier(512 << 20))
-    spill_ms = []
-    spill = h.block_manager.spill_fn
-
-    def timed_spill(bid, digest):
-        t0 = time.perf_counter()
-        spill(bid, digest)
-        spill_ms.append((time.perf_counter() - t0) * 1e3)
-
-    h.block_manager.spill_fn = timed_spill
-    system = _prompts([1024], config.vocab_size, SEED + 52)[0]
-    first, ttft0 = _timed(torch, lambda: run(h, system, 1, "sys-0"))
-    for i, f in enumerate(_prompts([700, 700], config.vocab_size,
-                                   SEED + 53)):
-        run(h, f, 4, f"fill-{i}")
-    s0 = h.stats()
-    second, ttft1 = _timed(torch, lambda: run(h, system, 1, "sys-1"))
-    s1 = h.stats()
-    hits = s1["host_prefix_hits"] - s0["host_prefix_hits"]
-    saved = (s1["host_prefix_tokens_saved"] - s0["host_prefix_tokens_saved"]
-             + s1["prefix_tokens_saved"] - s0["prefix_tokens_saved"])
-    computed = s1["prefill_tokens_computed"] - s0["prefill_tokens_computed"]
-    if hits <= 0 or computed != len(system) - saved or not spill_ms:
-        raise AssertionError(f"pages host tier: hits {hits}, computed "
-                             f"{computed}, saved {saved}, spills "
-                             f"{len(spill_ms)}")
-    block_mib = s1["host_prefix_bytes"] / max(s1["host_prefix_entries"],
-                                              1) / 2**20
-    log(f"pages: host tier: {len(spill_ms)} spills "
-        f"(median {float(np.median(spill_ms)):.2f} ms a {block_mib:.1f} MiB "
-        f"block), the "
-        f"repeated 1024-token prompt promoted {hits} blocks from host RAM "
-        f"({saved} tokens saved in all), prefill computed {computed} "
-        f"tokens; first token {ttft0:.1f} ms cold, {ttft1:.1f} ms promoted;"
-        f" same first token: {first == second}")
-    out.update(spills=len(spill_ms),
-               spill_ms_median=float(np.median(spill_ms)),
-               host_hits=hits, tokens_saved=saved, prefill_computed=computed,
-               ttft_cold_ms=ttft0, ttft_promoted_ms=ttft1)
+    h, numbers = _promote_run(torch, config, params)
+    out.update(numbers)
     # update_weights: a full new copy of the weights (wo halved) written in
     # place (no capture), both tiers dropped; then the old weights back.
     # The runner's tensors are the shared weights themselves.
@@ -1619,6 +1736,354 @@ def phase_pages(torch):
     del h, b
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def _block_mib(config, block_size=16):
+    """MiB of one KV block (k and v, every layer and kv head)."""
+    import torch
+
+    item = torch.empty((), dtype=config.dtype).element_size()
+    return (2 * config.n_layers * config.n_kv_heads * block_size
+            * config.head_dim * item) / 2**20
+
+
+def _prefix_adopt(torch, config, params, label, n_new=16):
+    """Two in-process servers of `config` on one table: the port's runtime
+    is up in this process, so each LLMServer holds a ClusterPrefixStore on
+    the real call_raw path to its GCS. The owner (a 128-page pool, a host
+    tier of 4 blocks, low watermark 0.2) serves a 1024-token system prompt
+    plus a 16-token suffix, then 700-token fillers until the table holds
+    the prompt's 64 blocks; the owner closes. A survivor with a fresh pool
+    and no host tier serves a cold 1040-token prompt, then the owner's
+    request: it adopts the blocks from the table, prefills the suffix
+    alone, and its K5 launches (counted from 0) are graph replays."""
+    from ray_tpu_torch.llm.prefix_store import (ClusterPrefixStore,
+                                                cluster_chain)
+    from ray_tpu_torch.llm.serving import LLMServer
+    from ray_tpu_torch.util import tracing
+
+    vocab = config.vocab_size
+    system, cold, suffix = _prompts([1024, 1024, 16], vocab,
+                                    SEED + 60 + zlib.crc32(label.encode()))
+    request = dict(prompt=system + suffix, max_tokens=n_new)
+    chain = cluster_chain(system, 16)
+    table = ClusterPrefixStore(16)
+    name = f"smoke-prefix-{label}"
+    host_mb = 4 * _block_mib(config)
+    owner = LLMServer(_engine_config(
+        config, num_kv_blocks=128, host_prefix_mb=host_mb,
+        host_prefix_low_watermark=0.2, deployment_name=name), params=params)
+    if owner.engine.cluster_store is None:
+        raise AssertionError(f"prefix_store {label}: the owner has no "
+                             "cluster store inside the runtime")
+    rec: dict = {}
+    _stream(owner, dict(request, request_id=f"{label}-owner"), rec)
+    ref = rec[f"{label}-owner"]["tokens"]
+    fillers, hit = 0, None
+    t0 = time.perf_counter()
+    while fillers < 16:
+        filler = _prompts([700], vocab, SEED + 61 + fillers)[0]
+        owner.completions(dict(prompt=filler, max_tokens=1))
+        fillers += 1
+        deadline = time.monotonic() + 1
+        while time.monotonic() < deadline:
+            hit = table.lookup_owner(chain)
+            if hit and hit["n_blocks"] == len(chain):
+                break
+            time.sleep(0.05)
+        if hit and hit["n_blocks"] == len(chain):
+            break
+    publish_s = time.perf_counter() - t0
+    ostats = owner.engine_stats()
+    if not hit or hit["n_blocks"] != len(chain):
+        raise AssertionError(f"prefix_store {label}: the table holds "
+                             f"{hit} of {len(chain)} blocks after "
+                             f"{fillers} fillers; owner {ostats}")
+    owner.close()
+    del owner
+    gc.collect()
+    survivor = LLMServer(_engine_config(
+        config, host_prefix_mb=0, deployment_name=name), params=params)
+    if survivor.engine.cluster_store is None:
+        raise AssertionError(f"prefix_store {label}: no survivor store")
+    _stream(survivor, dict(prompt=cold + suffix, max_tokens=n_new,
+                           request_id=f"{label}-cold"), rec)
+    n_spans = len(tracing.get_spans())
+    stats0 = _reset_counts(survivor)
+    _stream(survivor, dict(request, request_id=f"{label}-survivor"), rec)
+    counts = _counts_since(survivor, stats0)
+    stats = survivor.engine_stats()
+    spans = [sp for sp in tracing.get_spans()[n_spans:]
+             if sp["name"] == "llm:prefix_fetch"]
+    adopt_spans = [sp for sp in tracing.get_spans()[n_spans:]
+                   if sp["name"] == "llm:prefix_adopt"]
+    # The costs the table's adoption gate learned: a fetched block's, and
+    # a prefilled token's (the cold request's).
+    f, p = (survivor.engine._fetch_s_per_block,
+            survivor.engine._prefill_s_per_token)
+    if f is None or p is None:
+        raise AssertionError(f"prefix_store {label}: the gate learned no "
+                             f"cost (fetch {f}, prefill {p})")
+    gate = dict(fetch_ms_per_block=f * 1e3, prefill_ms_per_block=p * 16e3,
+                asks_next=f <= p * 16)
+    survivor.close()
+    del survivor
+    gc.collect()
+    torch.cuda.empty_cache()
+    got = rec[f"{label}-survivor"]["tokens"]
+    adopted = (stats["cluster_prefix_adopted_blocks"]
+               - stats0["cluster_prefix_adopted_blocks"])
+    computed = (stats["prefill_tokens_computed"]
+                - stats0["prefill_tokens_computed"])
+    fetch_ms = spans[-1]["dur"] / 1e3 if spans else None
+    fetch_bytes = spans[-1]["args"]["bytes"] if spans else 0
+    parts = _fetch_parts(table, chain)
+    out = dict(
+        blocks=len(chain), fillers=fillers, publish_s=publish_s,
+        published=ostats["cluster_prefix_published"],
+        owner_host_demotions=ostats["host_prefix_demotions"],
+        adopted_blocks=adopted,
+        hits=stats["cluster_prefix_hits"] - stats0["cluster_prefix_hits"],
+        prefill_computed=computed,
+        ttft_cold_ms=rec[f"{label}-cold"]["ttft_s"] * 1e3,
+        ttft_adopted_ms=rec[f"{label}-survivor"]["ttft_s"] * 1e3,
+        ttft_owner_ms=rec[f"{label}-owner"]["ttft_s"] * 1e3,
+        fetch_ms=fetch_ms, fetch_bytes=fetch_bytes,
+        fetch_gb_s=(fetch_bytes / (fetch_ms / 1e3) / 1e9
+                    if fetch_ms else None),
+        adopt_ms=adopt_spans[-1]["dur"] / 1e3 if adopt_spans else None,
+        fetch_parts=parts, gate=gate, survivor_counts=counts, tokens_equal=sum(
+            a == b for a, b in zip(got, ref)), n_tokens=len(ref))
+    _check_replica_counts(counts, config, f"prefix_store {label} survivor")
+    log(f"prefix_store {label}: the owner published "
+        f"{out['published']} blocks ({out['owner_host_demotions']} "
+        f"host-tier demotions; the prompt's {len(chain)} in the table after "
+        f"{fillers} fillers, {publish_s:.2f} s); the survivor adopted "
+        f"{adopted} blocks ({out['hits']} hits), prefill computed "
+        f"{computed} tokens of {len(request['prompt'])}; first token "
+        f"{out['ttft_adopted_ms']:.1f} ms adopted vs "
+        f"{out['ttft_cold_ms']:.1f} ms cold (owner "
+        f"{out['ttft_owner_ms']:.1f} ms); llm:prefix_fetch "
+        + (f"{fetch_ms:.1f} ms for {fetch_bytes / 2**20:.1f} MiB "
+           f"({out['fetch_gb_s']:.2f} GB/s)" if fetch_ms else "not recorded")
+        + f" (the adoption with its scatter {out['adopt_ms']} ms; alone on "
+        f"this host: the round trip {parts['rpc_ms']:.1f} ms, of which the "
+        f"GCS's join {parts['join_ms']:.1f}, a MAC {parts['mac_ms']:.1f} "
+        f"each way, the socket and the reader's copies "
+        f"{parts['rest_ms']:.1f}; a metadata-only round trip "
+        f"{parts['meta_ms']:.1f}; the decode {parts['decode_ms']:.1f}); "
+        f"the gate learned {gate['fetch_ms_per_block']:.2f} ms a fetched "
+        f"block against {gate['prefill_ms_per_block']:.2f} ms a prefilled "
+        f"one, so the next miss {'asks' if gate['asks_next'] else 'skips'} "
+        f"the table"
+        + f"; survivor K5 {counts['k5_launches']} over {counts['ticks']} "
+        f"ticks, step_compiles {counts['step_compiles']}; tokens equal to "
+        f"the owner's at {out['tokens_equal']}/{len(ref)}")
+    if (adopted <= 0 or out["hits"] != len(chain)
+            or computed != len(request["prompt"]) - 16 * len(chain)
+            or len(got) != n_new):
+        raise AssertionError(f"prefix_store {label}: {out}")
+    return out
+
+
+def _fetch_parts(table, chain) -> dict:
+    """The parts of a fetch of `chain` from the table, timed on this host
+    in ms: the raw-frame round trip with its payload (the GCS joins the
+    rows' payloads and MACs the reply, the socket carries it, the reader
+    copies it and checks its MAC), one without (want_payload=False), and,
+    alone on the reply's bytes, the join, one keyed blake2b MAC (the
+    wire's) and the decode. `rest_ms` is the round trip less the join
+    and two MACs: the socket and the reader's copies."""
+    import hashlib
+
+    from ray_tpu_torch.llm.prefix_store import decode_all
+    from ray_tpu_torch.runtime import wire
+
+    def lookup(want):
+        m = wire.PrefixLookupMsg(
+            digests=list(chain), lora_id="", weights_version=0,
+            block_size=16, want_payload=want).encode()
+        t0 = time.perf_counter()
+        out = table._call("prefix_lookup", m)
+        if out is None:
+            raise AssertionError("prefix_store: the table did not answer")
+        return (time.perf_counter() - t0) * 1e3, out
+
+    meta_ms, _ = lookup(False)
+    rpc_ms, (_, payload) = lookup(True)
+    payload = bytes(payload)
+    size = len(payload) // len(chain)
+    rows = [payload[i * size:(i + 1) * size] for i in range(len(chain))]
+    t0 = time.perf_counter()
+    b"".join(rows)
+    join_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    hashlib.blake2b(payload, key=os.urandom(32), digest_size=16).digest()
+    mac_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    decode_all(payload)
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    return dict(bytes=len(payload), rpc_ms=rpc_ms, meta_ms=meta_ms,
+                join_ms=join_ms, mac_ms=mac_ms, decode_ms=decode_ms,
+                rest_ms=rpc_ms - join_ms - 2 * mac_ms)
+
+
+def _tp_prefix_legs(torch):
+    """(c) ROADMAP's open item of a handoff into a tensor-parallel server,
+    on 2+ cards: fp32, full width, 2 layers, seeded weights. A one-card
+    server's greedy tokens are the reference. A tensor_parallel=2 server
+    (rank 0 holds the listener and scatters the whole pool through the
+    fanned scatter_pages) takes live sessions migrated from a one-card
+    server and hands others back, takes a prefill tier's handoffs, and
+    adopts a prefix another server published to the table; every leg
+    gives the reference tokens."""
+    from ray_tpu_torch.llm.disagg import PrefillServer
+    from ray_tpu_torch.llm.prefix_store import (ClusterPrefixStore,
+                                                cluster_chain)
+    from ray_tpu_torch.llm.serving import LLMServer
+    from ray_tpu_torch.models import llama
+
+    config = llama.LlamaConfig.llama3_8b(n_layers=2, dtype=torch.float32)
+    kw = dict(seed=SEED + 63, num_kv_blocks=256, warmup_buckets="light")
+    vocab = config.vocab_size
+    prompts = _prompts([150, 260], vocab, SEED + 64)
+    system, suffix = _prompts([320, 16], vocab, SEED + 65)
+
+    def requests(tag):
+        return [dict(prompt=p, max_tokens=32, request_id=f"{tag}-{i}")
+                for i, p in enumerate(prompts)]
+
+    out: dict = {}
+    one = LLMServer(_engine_config(config, **kw))
+    try:
+        ref = [one.completions(r)["choices"][0]["token_ids"]
+               for r in requests("ref")]
+        adopt_req = dict(prompt=system + suffix, max_tokens=32)
+        ref_adopt = one.completions(dict(adopt_req))["choices"][0][
+            "token_ids"]
+        t0 = time.perf_counter()
+        tp = LLMServer(_engine_config(config, tensor_parallel=2, **kw))
+        log(f"prefix_store (c): tensor_parallel=2 server up in "
+            f"{time.perf_counter() - t0:.1f} s")
+        try:
+            legs = {}
+            for label, src, dst in (("into_tp", one, tp),
+                                    ("out_of_tp", tp, one)):
+                res = _migrate_live(torch, src, dst, requests(label),
+                                    config)
+                legs[label] = dict(
+                    migrated=len(res["migrated"]),
+                    replayed=len(res["replayed"]),
+                    equal=[res["tokens"][f"{label}-{i}"] == ref[i]
+                           for i in range(len(prompts))])
+            pre = PrefillServer(_engine_config(config, **kw))
+            try:
+                rec: dict = {}
+                for r in requests("handoff"):
+                    _disagg_request(pre, tp, r, rec)
+                legs["handoff_into_tp"] = dict(equal=[
+                    rec[f"handoff-{i}"]["tokens"] == ref[i]
+                    for i in range(len(prompts))])
+            finally:
+                pre.close()
+            owner = LLMServer(_engine_config(
+                config, **dict(kw, num_kv_blocks=64),
+                host_prefix_mb=4 * _block_mib(config),
+                host_prefix_low_watermark=0.2))
+            try:
+                owner.completions(dict(adopt_req))
+                table = ClusterPrefixStore(16)
+                chain = cluster_chain(system, 16)
+                for i in range(12):
+                    owner.completions(dict(prompt=_prompts(
+                        [400], vocab, SEED + 66 + i)[0], max_tokens=1))
+                    hit = table.lookup_owner(chain)
+                    if hit and hit["n_blocks"] == len(chain):
+                        break
+                    time.sleep(0.5)
+            finally:
+                owner.close()
+            s0 = tp.engine_stats()
+            got = tp.completions(dict(adopt_req))["choices"][0]["token_ids"]
+            s1 = tp.engine_stats()
+            legs["adopt_into_tp"] = dict(
+                adopted=(s1["cluster_prefix_adopted_blocks"]
+                         - s0["cluster_prefix_adopted_blocks"]),
+                computed=(s1["prefill_tokens_computed"]
+                          - s0["prefill_tokens_computed"]),
+                equal=[got == ref_adopt])
+        finally:
+            _close_world(tp.close, 2, "prefix_store (c)")
+    finally:
+        one.close()
+    out["legs"] = legs
+    log(f"prefix_store (c) fp32 full width, 2 layers, tensor_parallel=2: "
+        f"{legs}")
+    bad = [k for k, v in legs.items() if not all(v["equal"])]
+    if (bad or legs["adopt_into_tp"]["adopted"] != len(chain)
+            or legs["adopt_into_tp"]["computed"] != len(suffix)
+            or not legs["into_tp"]["migrated"]
+            or not legs["out_of_tp"]["migrated"]):
+        raise AssertionError(f"prefix_store (c): legs {bad} differ from "
+                             f"one card's tokens, or moved nothing: {legs}")
+    return out
+
+
+def _await_clean(session_dir, store_path, label):
+    """Wait up to 60 s for the session's processes and store file to go."""
+    deadline = time.monotonic() + 60
+    while True:
+        procs = _runtime_processes(session_dir)
+        shm = os.path.exists(store_path)
+        if not procs and not shm:
+            return
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{label}: after shutdown: processes "
+                                 f"{procs}, store file {store_path} left: "
+                                 f"{shm}")
+        time.sleep(0.5)
+
+
+def phase_prefix_store(torch):
+    """The cluster prefix store on the card (ROADMAP queue 1 item 6.3): the
+    port's runtime up in this process, its GCS holding the prefix table.
+    (a) Llama-3-8B bf16: a server's host tier publishes a 1024-token
+    system prompt's 64 blocks, a second server adopts them
+    (`_prefix_adopt`); the same on a narrow fp32 model, where the
+    survivor's tokens equal the owner's exactly. (c) With 2+ cards, the
+    tensor-parallel legs (`_tp_prefix_legs`)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core import api
+    from ray_tpu_torch.models import llama
+
+    out: dict = {}
+    config, params = _llama8b(torch)
+    rt.init(object_store_memory=256 << 20)
+    try:
+        session_dir = rt.get_runtime_context().session_dir
+        store_path = api._head.store_path
+        out["bf16"] = _prefix_adopt(torch, config, params, "8b")
+        narrow = llama.LlamaConfig.llama3_8b(
+            n_layers=2, d_model=1024, n_heads=8, n_kv_heads=8, d_ff=2048,
+            dtype=torch.float32)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 62)
+        fp32 = _prefix_adopt(torch, narrow, llama.init_params(
+            narrow, gen, "cuda"), "fp32")
+        if fp32["tokens_equal"] != fp32["n_tokens"]:
+            raise AssertionError(f"prefix_store fp32: the survivor's tokens "
+                                 f"differ from the owner's: {fp32}")
+        out["fp32"] = fp32
+        out["survivor_counts"] = out["bf16"]["survivor_counts"]
+        if torch.cuda.device_count() >= 2:
+            out["tp"] = _tp_prefix_legs(torch)
+        else:
+            log("prefix_store: one card: the tensor-parallel legs (a "
+                "migration into and out of a tensor_parallel=2 server, a "
+                "prefill handoff into it, a table adoption into it) skipped")
+    finally:
+        rt.shutdown()
+    _await_clean(session_dir, store_path, "prefix_store")
+    RESULTS["prefix_store"] = out
 
 
 def _count_runner_steps(runner) -> dict:
@@ -1945,7 +2410,7 @@ def _migrate_live(torch, source, target, requests, config):
     out = dict(migrated=res["migrated"], replayed=res["replayed"],
                finished=res["finished"], send_failed=res["send_failed"],
                migrate_sessions_ms=migrate_s * 1e3, pause_ms=pause,
-               modes=modes)
+               modes=modes, tokens=tokens)
     log(f"migration: {len(res['migrated'])} migrated with KV, "
         f"{len(res['replayed'])} replayed, {len(res['finished'])} finished "
         f"in the harvest, migrate_sessions {migrate_s * 1e3:.1f} ms; pause "
@@ -3788,17 +4253,19 @@ def _restored_state(torch, directory):
 
 
 def _train_checkpoint(torch, tmp):
-    """(a) the bench cell's train state (bf16, AdamW with bf16 mu) after 2
-    steps, saved at world 1 (save_sharded) and at world 2 (two ranks'
-    shards through the CheckpointPlane's async save), then the
-    uninterrupted third step; each checkpoint restored and stepped gives
-    that step's loss bit for bit. Save and restore ms and GB/s."""
+    """(a) the bench cell's train state at 7 of its 14 layers (bf16,
+    AdamW with bf16 mu; the depth halved to keep every phase inside the
+    time limit) after 2 steps, saved at world 1 (save_sharded) and at
+    world 2 (two ranks' shards through the CheckpointPlane's async save),
+    then the uninterrupted third step; each checkpoint restored and
+    stepped gives that step's loss bit for bit. Save and restore ms and
+    GB/s."""
     from ray_tpu_torch.checkpoint import (CheckpointPlane, read_manifest,
                                           save_sharded)
     from ray_tpu_torch.train.optim import adamw
     from ray_tpu_torch.train.step import init_state, make_step
 
-    config = _bench_train_config(torch)
+    config = _bench_train_config(torch, n_layers=7)
     opt = adamw(1e-4, b1=0.9, b2=0.95, mu_dtype=torch.bfloat16)
     state = init_state(config, opt,
                        torch.Generator(device="cuda").manual_seed(SEED))
@@ -3848,8 +4315,8 @@ def _train_checkpoint(torch, tmp):
         gc.collect()
         torch.cuda.empty_cache()
     gb = nbytes / 1e9
-    log(f"checkpoint (a) bench train state ({gb:.3f} GB: params, AdamW mu "
-        f"and nu, bf16) after 2 steps: save world 1 {save1:.0f} ms "
+    log(f"checkpoint (a) bench train state, 7 layers ({gb:.3f} GB: params, "
+        f"AdamW mu and nu, bf16) after 2 steps: save world 1 {save1:.0f} ms "
         f"({gb / save1 * 1e3:.2f} GB/s), world 2 through the plane "
         f"{save2:.0f} ms ({gb / save2 * 1e3:.2f} GB/s; the caller stalled "
         f"{stall2:.0f} ms for both snapshots); restore world 1 "
@@ -5152,6 +5619,214 @@ def _router_drain(torch, serving):
     return out
 
 
+def _call_replica(handle, method, *args, timeout=300):
+    import ray_tpu_torch as rt
+
+    return rt.get(handle.handle_request.remote(method, list(args), {}),
+                  timeout=timeout)
+
+
+def _publish_until(replica, table, chain, config, seed, most=40):
+    """Fillers of 700 tokens sent straight to `replica` until the table
+    holds every block of `chain` (the replica's host tier demotes its
+    parked blocks there); returns (fillers sent, seconds, lookup_owner)."""
+    t0 = time.perf_counter()
+    for n in range(1, most + 1):
+        _call_replica(replica, "completions", dict(
+            prompt=_prompts([700], config.vocab_size, seed + n)[0],
+            max_tokens=1))
+        deadline = time.monotonic() + 0.3
+        while time.monotonic() < deadline:
+            hit = table.lookup_owner(chain)
+            if hit and hit["n_blocks"] == len(chain):
+                return n, time.perf_counter() - t0, hit
+            time.sleep(0.05)
+    raise AssertionError(f"the table holds {table.lookup_owner(chain)} of "
+                         f"{len(chain)} blocks after {most} fillers")
+
+
+def _restart_replica(name, handle):
+    """Kill one replica of deployment `name` and have the controller start
+    another in its place; returns (seconds to the new replica, its
+    handle)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve import api as serve_api
+
+    controller = serve_api._get_controller()
+    n = len(rt.get(controller.get_replicas.remote(name),
+                   timeout=60)["replicas"])
+    t0 = time.perf_counter()
+    rt.kill(handle)
+    rt.get(controller.remove_replica.remote(
+        name, bytes(handle._actor_id).hex()), timeout=60)
+    rt.get(controller.scale_replicas.remote(name, n), timeout=600)
+    new = [h for h in serve.get_deployment_handle(name).replica_handles()
+           if h._actor_id != handle._actor_id]
+    return time.perf_counter() - t0, new[-1]
+
+
+def _replica_restart_leg(config, name):
+    """(b) On the router phase's app: the engine replica publishes the
+    shared-prefix leg's first prompt to the table under fillers, is killed,
+    and the controller starts another; that one serves the prompt plus a
+    new suffix by adopting its 32 blocks from the table (prefill of the
+    suffix alone, K5 counted from 0 all graph replays)."""
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm.prefix_store import (ClusterPrefixStore,
+                                                cluster_chain)
+
+    engine_name = f"{name}-engine"
+    prefix = _prompts([512] * 3, config.vocab_size, SEED + 17)[0]
+    suffix = _prompts([16], config.vocab_size, SEED + 70)[0]
+    request = dict(prompt=prefix + suffix, max_tokens=8)
+    table = ClusterPrefixStore(16)
+    chain = cluster_chain(prefix, 16)
+    old = serve.get_deployment_handle(engine_name).replica_handles()[0]
+    ref = _call_replica(old, "completions", dict(request))["choices"][0][
+        "token_ids"]
+    fillers, publish_s, hit = _publish_until(old, table, chain, config,
+                                             SEED + 71)
+    restart_s, new = _restart_replica(engine_name, old)
+    _call_replica(new, "reset_counts", None)
+    s0 = _call_replica(new, "engine_stats")
+    t0 = time.perf_counter()
+    got = _call_replica(new, "completions", dict(request))["choices"][0][
+        "token_ids"]
+    wall = time.perf_counter() - t0
+    s1 = _call_replica(new, "engine_stats")
+    counts = _call_replica(new, "counts", None)
+    out = dict(fillers=fillers, publish_s=publish_s, owner_hint=hit,
+               restart_s=restart_s, request_s=wall,
+               adopted=(s1["cluster_prefix_adopted_blocks"]
+                        - s0["cluster_prefix_adopted_blocks"]),
+               computed=(s1["prefill_tokens_computed"]
+                         - s0["prefill_tokens_computed"]),
+               counts=counts, tokens_equal=sum(
+                   a == b for a, b in zip(got, ref)), n_tokens=len(ref))
+    log(f"router (b): the replica published the 512-token prompt's "
+        f"{len(chain)} blocks after {fillers} fillers ({publish_s:.2f} s); "
+        f"killed, a new replica up in {restart_s:.1f} s adopted "
+        f"{out['adopted']} blocks and prefilled {out['computed']} tokens "
+        f"of {len(request['prompt'])} ({wall * 1e3:.1f} ms for 8 tokens); "
+        f"K5 {counts['k5_launches']} over {counts['ticks']} ticks; tokens "
+        f"equal to the killed replica's at {out['tokens_equal']}/8")
+    _check_replica_counts(counts, config, "router (b) new replica")
+    if out["adopted"] != len(chain) or out["computed"] != len(suffix):
+        raise AssertionError(f"router (b): {out}")
+    return out, chain
+
+
+def _router_cluster_legs(torch, serving):
+    """(c) On 2+ cards: the 8B routed app with two one-card engine
+    replicas on the default cluster store. A prompt's owner (the replica
+    the router sent it to) publishes it under fillers; the router
+    deployment is restarted (its owner LRU empty) and, while the owner is
+    the busier replica, its next request on that prompt goes to the owner
+    through `_cluster_affinity`; then the owner is killed: the router
+    ejects it (blanking its owner hints) and replays the request on the
+    survivor, which adopts the prompt from the table."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm.prefix_store import (ClusterPrefixStore,
+                                                cluster_chain)
+    from ray_tpu_torch.models import llama
+
+    config = llama.LlamaConfig.llama3_8b(dtype=torch.bfloat16)
+    name = "router-cluster"
+    _routed_app(serving, _engine_config(
+        config, seed=SEED, num_replicas=2, num_gpus_per_replica=1,
+        routing="affinity", host_prefix_mb=16 * _block_mib(config)), name)
+    engine_name = f"{name}-engine"
+    prefix = _prompts([512], config.vocab_size, SEED + 72)[0]
+    table = ClusterPrefixStore(16)
+    chain = cluster_chain(prefix, 16)
+
+    def ask(tag, n_new=8):
+        # A new handle each time: it finds the router replica in place now.
+        r = dict(prompt=prefix + _prompts([16], config.vocab_size,
+                                          SEED + 73 + len(tag))[0],
+                 max_tokens=n_new, request_id=f"cluster-{tag}")
+        return serve.get_deployment_handle(name).completions.remote(
+            r).result(timeout_s=300)["choices"][0]["token_ids"]
+
+    def stats():
+        return _replica_calls(engine_name, "engine_stats")
+
+    out: dict = {}
+    s0 = stats()
+    ask("first")
+    s1 = stats()
+    owner = max(range(2), key=lambda i: s1[i]["prefill_tokens_computed"]
+                - s0[i]["prefill_tokens_computed"])
+    other = 1 - owner
+    handles = serve.get_deployment_handle(engine_name).replica_handles()
+    fillers, publish_s, hit = _publish_until(handles[owner], table, chain,
+                                             config, SEED + 74)
+    if hit["owner_replica"] != s1[owner]["replica"]:
+        raise AssertionError(f"router (c): owner hint {hit} is not "
+                             f"replica {owner}'s {s1[owner]['replica']}")
+    out.update(owner=owner, fillers=fillers, publish_s=publish_s)
+    # A new router (empty owner LRU) while the owner is the busier one:
+    # pow2 alone would pick the other replica.
+    router_restart_s, _ = _restart_replica(
+        name, serve.get_deployment_handle(name).replica_handles()[0])
+    busy = threading.Thread(target=_call_replica, args=(
+        handles[owner], "completions", dict(
+            prompt=_prompts([64], config.vocab_size, SEED + 75)[0],
+            max_tokens=400)))
+    busy.start()
+    deadline = time.monotonic() + 60
+    while not stats()[owner]["running"]:
+        if time.monotonic() > deadline:
+            raise AssertionError("router (c): the owner never got busy")
+        time.sleep(0.05)
+    time.sleep(0.5)   # past the supervisor's stats TTL
+    s2 = stats()
+    ask("after-restart")
+    s3 = stats()
+    busy.join(600)
+    routed = [s3[i]["prefill_tokens_computed"]
+              - s2[i]["prefill_tokens_computed"] for i in range(2)]
+    out.update(router_restart_s=router_restart_s,
+               computed_after_restart=routed)
+    if not routed[owner] or routed[other]:
+        raise AssertionError(f"router (c): after the router's restart the "
+                             f"request went elsewhere: prefill tokens "
+                             f"computed per replica {routed}")
+    # The owner dies: eject, purge of its hints, replay on the survivor,
+    # which adopts from the table.
+    rt.kill(handles[owner])
+    sv0 = _call_replica(handles[other], "engine_stats")
+    tokens = ask("after-kill")
+    sv1 = _call_replica(handles[other], "engine_stats")
+    adopted = (sv1["cluster_prefix_adopted_blocks"]
+               - sv0["cluster_prefix_adopted_blocks"])
+    hint = table.lookup_owner(chain)
+    rstats = serve.get_deployment_handle(name).options(
+        "router_stats").remote().result(timeout=60)
+    out.update(survivor_adopted=adopted, hint_after=hint,
+               router_stats=rstats, tokens=len(tokens))
+    log(f"router (c): replica {owner} owned the 512-token prompt, "
+        f"published after {fillers} fillers ({publish_s:.2f} s); a new "
+        f"router ({router_restart_s:.1f} s) sent the prompt back to it "
+        f"through the table's owner hint while it was the busier replica "
+        f"(prefill tokens computed per replica {routed}); the owner killed, "
+        f"the survivor adopted {adopted} blocks, table hint now "
+        f"{hint}; router_stats {rstats}")
+    if (adopted != len(chain) or len(tokens) != 8
+            or (hint or {}).get("owner_replica") == s1[owner]["replica"]):
+        raise AssertionError(f"router (c): {out}")
+    for n in (name, engine_name):
+        serve.delete(n)
+    deadline = time.monotonic() + 30
+    while table.lookup_owner(chain) and time.monotonic() < deadline:
+        time.sleep(0.2)
+    if table.lookup_owner(chain):
+        raise AssertionError("router (c): rows left after serve.delete")
+    return out
+
+
 def phase_router(torch):
     """The LLM router front on the port's runtime on the card: Llama-3-8B
     served through build_openai_app(routing="affinity") behind the HTTP
@@ -5183,8 +5858,10 @@ def phase_router(torch):
         host, port = serve.start_http_proxy()
         out["proxy_up_s"] = time.perf_counter() - t0
         config = llama.LlamaConfig.llama3_8b(dtype=torch.bfloat16)
+        # A host tier of 16 blocks: LLMConfig's default 32 MB at 8B.
         cfg = _engine_config(config, seed=SEED, num_replicas=1,
-                             num_gpus_per_replica=1, routing="affinity")
+                             num_gpus_per_replica=1, routing="affinity",
+                             host_prefix_mb=16 * _block_mib(config))
         name = "v1-router"
         t0 = time.perf_counter()
         _routed_app(serving, cfg, name)
@@ -5265,8 +5942,20 @@ def phase_router(torch):
             f"ttft_breakdown_ms {s.get('ttft_breakdown_ms')}")
         if s.get("replicas_reporting", 0) < 1:
             raise AssertionError(f"llm_serving_summary: {s}")
+        out["restart"], chain = _replica_restart_leg(config, name)
         for n in (name, f"{name}-engine"):
             serve.delete(n)
+        from ray_tpu_torch.llm.prefix_store import ClusterPrefixStore
+
+        table = ClusterPrefixStore(16)
+        deadline = time.monotonic() + 30
+        while table.lookup_owner(chain) and time.monotonic() < deadline:
+            time.sleep(0.2)
+        left = table.lookup_owner(chain)
+        log(f"router (b): after serve.delete the table holds {left} of "
+            f"the deployment's rows")
+        if left:
+            raise AssertionError(f"router (b): rows left: {left}")
         gc.collect()
         torch.cuda.empty_cache()
         out["identity"] = _router_identity(torch, serving)
@@ -5274,10 +5963,11 @@ def phase_router(torch):
             out["drain"] = _router_drain(torch, serving)
             out["identity_disagg"] = _router_identity(torch, serving,
                                                       disaggregate=1)
+            out["cluster"] = _router_cluster_legs(torch, serving)
         else:
-            log("router: one card: the drain leg (two one-card replicas) "
-                "and the disaggregate=1 leg (a prefill replica beside the "
-                "engine replica) skipped")
+            log("router: one card: the drain leg (two one-card replicas), "
+                "the disaggregate=1 leg (a prefill replica beside the "
+                "engine replica) and the cluster legs (c) skipped")
     finally:
         try:
             serve.shutdown()
@@ -5322,8 +6012,9 @@ def kernels_line() -> dict:
     LLMRouter, counted inside the engine replica, and with 2+ cards its
     fp32 disaggregated app's counts inside the engine replica
     (`launches_router_disagg_engine`, K5) and the prefill replica
-    (`launches_router_prefill`, K6), `launches_rlhf_update` (flash) one
-    learner update. `ms` is eager, host
+    (`launches_router_prefill`, K6), `launches_prefix_survivor` (K5) the
+    prefix_store phase's 8B survivor serving the adopted prompt, counted
+    from 0, `launches_rlhf_update` (flash) one learner update. `ms` is eager, host
     included; `graph_ms` (K5/K6) the device time alone. `cuda_kernel` names the
     `__global__` functions the bf16 case launches, as profiles show them."""
     rows = RESULTS.get("kernel_cases", [])
@@ -5386,7 +6077,9 @@ def kernels_line() -> dict:
                   "replica_counts", {}).get("k5_launches"),
               launches_router_disagg_engine=RESULTS.get("router", {}).get(
                   "identity_disagg", {}).get("engine_counts", {}).get(
-                  "k5_launches")),
+                  "k5_launches"),
+              launches_prefix_survivor=RESULTS.get("prefix_store", {}).get(
+                  "survivor_counts", {}).get("k5_launches")),
         entry("K6", "ragged_paged_attention",
               "rpa_tile_kernel (+ rpa_merge_kernel when split); fp32: "
               "rpa_kernel",
@@ -5422,8 +6115,9 @@ def main(argv=None) -> int:
                     + " in this order")
     ap.add_argument("--turn-legs", default="kernels",
                     help="with --turns: comma-separated legs, 'kernels' "
-                    "(TURN_CASES) and/or 'server' (the server mix three "
-                    "times and decode walls, each tree in a new process)")
+                    "(TURN_CASES), 'server' (the server mix three "
+                    "times and decode walls) and/or 'promote' (the host "
+                    "tier's promotion), each tree in a new process")
     ap.add_argument("--turn-in", help=argparse.SUPPRESS)
     ap.add_argument("--tp-leg", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -5438,7 +6132,7 @@ def main(argv=None) -> int:
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
     legs = [x for x in args.turn_legs.split(",") if x]
-    if set(legs) - {"kernels", "server"}:
+    if set(legs) - {"kernels", "server", "promote"}:
         ap.error(f"unknown turn legs {legs}")
 
     import torch
@@ -5465,6 +6159,8 @@ def main(argv=None) -> int:
             _turn_times(torch)
         if "server" in legs:
             _turn_server(torch)
+        if "promote" in legs:
+            _turn_promote(torch)
         return 0
     if args.tp_leg:
         name, leg_args, out = json.loads(args.tp_leg)

@@ -276,9 +276,18 @@ class KVStreamServer:
     def close(self):
         self._closed = True
         try:
+            # Wakes the listener blocked in accept(): a close alone leaves
+            # it there, and the thread keeps this object, its adopt
+            # callback and the whole server (engine, KV pool) alive.
+            self._sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        try:
             self._sock.close()
         except OSError:
             pass
+        if self._thread is not threading.current_thread():
+            self._thread.join(5)
 
 
 class PrefillServer:

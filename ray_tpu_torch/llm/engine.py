@@ -30,10 +30,12 @@ Port of ray_tpu/llm/engine.py:
   * The KV page plane: `export_request` / `export_session` /
     `adopt_request` move a live request with its pages between engines;
     `update_weights` swaps the weights in place and drops every cached
-    prefix; `attach_prefix_store` wires the host prefix tier
-    (llm/prefix_store.py), which catches evicted prefix blocks and
-    promotes them back at admission; `export_prefixes` / `adopt_prefix`
-    move idle prefix blocks.
+    prefix; `attach_prefix_store` wires the tiered prefix store
+    (llm/prefix_store.py): the host tier catches evicted prefix blocks,
+    its watermark victims are published to the cluster prefix table, and
+    admission promotes from both, the host tier's run and then one fetch
+    from the table, each written to the pool in one batched scatter;
+    `export_prefixes` / `adopt_prefix` move idle prefix blocks.
   * Prefill-only engines (`prefill_only=True`, the prefill tier of
     disaggregated serving, llm/disagg.py): chunked prefill on the split
     path only, never a decode tick and never a unified tick (no unified
@@ -44,32 +46,31 @@ Port of ray_tpu/llm/engine.py:
     ray_tpu_llm_{ttft,itl}_breakdown_ms histograms and recorded as the
     request's llm:queue/llm:prefill/llm:decode spans (host work after
     the tick, as the JAX engine's).
-
-The cluster prefix tier needs an actor runtime the port does not have
-yet: the engine refuses it with a ValueError instead of computing
-something else.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import logging
 import os
 import time
 import uuid
 import zlib
 from collections import OrderedDict, deque
+from itertools import islice
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ray_tpu_torch.core.exceptions import _unported
 from ray_tpu_torch.llm.model_runner import HostCopy, _bucket, token_buckets
 from ray_tpu_torch.llm.sampling import SamplingParams, sample
 from ray_tpu_torch.ops import to_torch
 from ray_tpu_torch.runtime import metric_defs
 from ray_tpu_torch.util import tracing
+
+log = logging.getLogger(__name__)
 
 # Per-process key for the prefix-cache digest chain: unpredictable to
 # clients, so cache addresses can't be forged across tenants.
@@ -79,6 +80,10 @@ _PREFIX_CACHE_SALT = os.urandom(16)
 PIPELINE_DEPTH = 4
 # Finished requests whose request_breakdown the engine keeps.
 BREAKDOWNS_KEPT = 256
+# The cluster table's adoption gate (LLMEngine._fetch_pays): every this
+# many-th fetch it refuses goes ahead, so the learned fetch cost follows
+# the load.
+FETCH_REPROBE = 32
 
 
 class WeightSyncError(RuntimeError):
@@ -141,6 +146,10 @@ class RequestOutput:
     new_token_ids: List[int] = dataclasses.field(default_factory=list)
 
 
+def _ema(old: Optional[float], sample: float) -> float:
+    return sample if old is None else 0.75 * old + 0.25 * sample
+
+
 class _Request:
     def __init__(self, request_id: str, prompt: List[int],
                  params: SamplingParams, lora_slot: int = 0):
@@ -161,6 +170,10 @@ class _Request:
         self.prefix_hashes: Optional[List[bytes]] = None  # lazy, per prompt
         self.registered_blocks = 0  # prompt blocks made cache-addressable
         self.adopted = False   # arrived via KV handoff (prefill elsewhere)
+        # (admission time, tokens to prefill) of an admission that found
+        # nothing in the host tier or the table: its first token is a
+        # sample of the prefill's cost (LLMEngine._note_prefill).
+        self.prefill_clock: Optional[Tuple[float, int]] = None
         # Lifecycle timestamps; they travel inside an exported request's
         # state, handoff_s/pause_s accumulate the time spent off-engine.
         self.timing: Dict[str, Optional[float]] = {
@@ -209,9 +222,10 @@ class BlockManager:
         # request still pins its slot (slots are recycled across loads).
         self.digest_meta: Dict[bytes, Tuple[int, Optional[str],
                                             Tuple[int, ...]]] = {}
-        # Hooks installed by LLMEngine.attach_prefix_store: spill_fn(bid,
-        # digest) runs just before a parked cached block is recycled (the
-        # last moment its pages are intact); lora_name_fn maps a pinned
+        # Hooks installed by LLMEngine.attach_prefix_store: spill_fn([(bid,
+        # digest), ...]) runs just before parked cached blocks are
+        # recycled (the last moment their pages are intact), once for all
+        # the blocks one allocation recycles; lora_name_fn maps a pinned
         # slot to its adapter name ("" = base model).
         self.spill_fn = None
         self.lora_name_fn = None
@@ -230,27 +244,30 @@ class BlockManager:
     def can_allocate(self, num_tokens: int) -> bool:
         return self.available() >= self.blocks_needed(num_tokens)
 
-    def _take_free_block(self) -> int:
-        if self.free:
-            return self.free.popleft()
-        # Recycle the least-recently-used parked cached block, spilling it
-        # to the host prefix tier first while its pages are still intact.
-        bid, _ = self.reusable.popitem(last=False)
-        h = self.block_hash.pop(bid)
-        if self.spill_fn is not None:
-            self.spill_fn(bid, h)
-        self.cached.pop(h, None)
-        self.digest_meta.pop(h, None)
-        return bid
+    def _take_blocks(self, n: int) -> List[int]:
+        """n pages, refcounted: free ones first, then the least recently
+        used parked cached blocks, whose pages are spilled to the host
+        prefix tier in one batch while they are still intact."""
+        out = [self.free.popleft() for _ in range(min(n, len(self.free)))]
+        victims = []
+        for _ in range(n - len(out)):
+            bid, _ = self.reusable.popitem(last=False)
+            victims.append((bid, self.block_hash.pop(bid)))
+        if victims and self.spill_fn is not None:
+            self.spill_fn(victims)
+        for bid, h in victims:
+            self.cached.pop(h, None)
+            self.digest_meta.pop(h, None)
+            out.append(bid)
+        for bid in out:
+            self.refcount[bid] = self.refcount.get(bid, 0) + 1
+        return out
 
     def allocate(self, req: _Request, num_tokens: int) -> bool:
         need = self.blocks_needed(num_tokens) - len(req.blocks)
         if need > self.available():
             return False
-        for _ in range(max(0, need)):
-            bid = self._take_free_block()
-            self.refcount[bid] = self.refcount.get(bid, 0) + 1
-            req.blocks.append(bid)
+        req.blocks.extend(self._take_blocks(max(0, need)))
         return True
 
     def release(self, req: _Request):
@@ -363,12 +380,7 @@ class BlockManager:
         cannot fit them."""
         if self.available() < n:
             return None
-        out: List[int] = []
-        for _ in range(n):
-            bid = self._take_free_block()
-            self.refcount[bid] = self.refcount.get(bid, 0) + 1
-            out.append(bid)
-        return out
+        return self._take_blocks(n)
 
 
 class LLMEngine:
@@ -429,12 +441,29 @@ class LLMEngine:
         # Prefill tokens actually run through the model (cache hits and
         # adopted KV excluded).
         self.prefill_tokens_computed = 0
-        # Host prefix tier (llm/prefix_store.py), attached by the serving
-        # layer through attach_prefix_store: it catches device evictions
-        # and _admit promotes from it.
+        # Tiered prefix store (llm/prefix_store.py), attached by the
+        # serving layer through attach_prefix_store: the host tier catches
+        # device evictions, the cluster store makes published prefixes
+        # adoptable by every server, and _admit promotes from both.
         self.host_prefix_tier = None
+        self.cluster_store = None
+        # ModelRunner.fingerprint of the served weights, taken when a
+        # cluster store is attached: the rows this engine publishes carry
+        # it and the rows it adopts must.
+        self.model_fingerprint = ""
+        # The table's adoption gate (_fetch_pays) learns both costs from
+        # this engine's own runs: seconds a fetched block took, and
+        # seconds a prefilled token took (None: not seen yet).
+        self._fetch_s_per_block: Optional[float] = None
+        self._prefill_s_per_token: Optional[float] = None
+        self.table_fetches_skipped = 0
+        # Pages of parked blocks gathered ahead of their spill (bid ->
+        # (k, v)), filled only during _promote_prefix's host walk.
+        self._spill_ahead: Dict[int, tuple] = {}
         self.host_prefix_hits = 0
         self.host_prefix_tokens_saved = 0
+        self.cluster_prefix_hits = 0
+        self.cluster_prefix_tokens_saved = 0
         self.preemptions = 0
         self.ticks = 0               # unified mixed steps dispatched
         # Rows per sequence of a unified tick: its last token, then the
@@ -631,7 +660,8 @@ class LLMEngine:
         each copies its shard): a captured graph holds those tensors, so
         it replays the new weights with no recapture. The whole prefix
         cache and the host tier are invalidated (their KV was computed
-        under the old weights) and `weights_version` moves on.
+        under the old weights), `weights_version` moves on and the cluster
+        table's rows under older versions are purged.
 
         Refuses while requests are unfinished unless `force=True`: a
         sequence would mix logits from two policies mid-generation."""
@@ -654,8 +684,15 @@ class LLMEngine:
         invalidated = self.block_manager.invalidate_prefix_cache()
         self.weights_version = (version if version is not None
                                 else self.weights_version + 1)
+        # Spilled KV is as stale as cached KV: drop the host tier and GC
+        # the table's rows below the new version (adoption also gates on
+        # the exact version, so a racing peer never revives old pages).
         if self.host_prefix_tier is not None:
             invalidated += self.host_prefix_tier.clear()
+        if self.cluster_store is not None:
+            self.model_fingerprint = self.runner.fingerprint()
+            self.cluster_store.purge(
+                below_weights_version=self.weights_version)
         return {"version": self.weights_version,
                 "invalidated_prefix_entries": invalidated}
 
@@ -785,18 +822,26 @@ class LLMEngine:
         self.running.append(req)
         return True
 
-    # ---- the host prefix tier (llm/prefix_store.py) ----------------------
+    # ---- the tiered prefix store (llm/prefix_store.py) -------------------
 
     def attach_prefix_store(self, host_tier=None, cluster_store=None):
-        """Wire the host prefix tier in: BlockManager evictions spill
-        through `host_tier` and _admit promotes from it. The cluster tier
-        needs an actor runtime, which the port does not have yet."""
-        if cluster_store is not None:
-            raise _unported("cluster prefix store")
+        """Wire the tiered prefix store in: BlockManager evictions spill
+        through `host_tier` (whose blocks' page-locked buffers are
+        reserved here), the victims past its capacity are published to
+        `cluster_store`, and _admit promotes from both.
+        Either may be None (host-only works alone; cluster-only skips host
+        RAM)."""
         self.host_prefix_tier = host_tier
+        self.cluster_store = cluster_store
         self.block_manager.lora_name_fn = self._lora_name
+        if cluster_store is not None:
+            self.model_fingerprint = self.runner.fingerprint()
         if host_tier is not None:
-            self.block_manager.spill_fn = self._spill_block
+            self.block_manager.spill_fn = self._spill_blocks
+            self.runner.reserve_host_pages(
+                host_tier.capacity_bytes // self.runner.block_nbytes)
+            if cluster_store is not None and host_tier.on_demote is None:
+                host_tier.on_demote = self._demote_entry
 
     def _lora_name(self, lora_slot: int) -> Optional[str]:
         """Adapter name for a pinned slot: "" = base model, None = cannot
@@ -806,60 +851,162 @@ class LLMEngine:
         lm = self.runner.lora
         return lm.name_of(lora_slot) if lm is not None else None
 
-    def _spill_block(self, bid: int, h: bytes) -> None:
-        """BlockManager eviction hook: copy the victim block's pages to the
-        host tier before the device page is recycled. The copy runs on the
-        current stream (after every step that wrote the page), before the
-        page is handed out. Best-effort: a failed spill is a future cache
-        miss, never an engine error."""
+    def _spillable(self, victims):
+        """(bid, digest, meta) of the victims the host tier can re-address
+        (registered, with a resolvable adapter name)."""
+        out = []
+        for bid, h in victims:
+            meta = self.block_manager.digest_meta.get(h)
+            if meta is not None and meta[1] is not None:
+                out.append((bid, h, meta))
+        return out
+
+    def _spill_blocks(self, victims) -> None:
+        """BlockManager eviction hook: copy the victim blocks' pages to the
+        host tier, oldest first, before their device pages are recycled,
+        on the current stream after every step that wrote them (pages
+        gathered ahead by _promote_prefix are taken from there). Each
+        block has a host buffer of its own, and the victims go in runs of
+        at most the tier's capacity, one gather and one synchronize a run,
+        so page-locked memory stays within the tier's bytes plus one run.
+        Best-effort: a failed spill is a future cache miss, never an
+        engine error."""
         tier = self.host_prefix_tier
-        if tier is None:
+        keep = self._spillable(victims) if tier is not None else []
+        if not keep:
             return
-        meta = self.block_manager.digest_meta.get(h)
-        if meta is None:
-            return
-        slot, lora_name, tokens = meta
-        if lora_name is None:
-            return
-        try:
-            k, v = self.runner.gather_pages([bid])
-        except Exception:
-            return
-        tier.put(h, {"tokens": tokens, "k": k, "v": v, "lora_slot": slot,
-                     "lora_name": lora_name,
-                     "weights_version": self.weights_version,
-                     "nbytes": int(k.nbytes + v.nbytes)})
+        run = max(1, tier.capacity_bytes // self.runner.block_nbytes)
+        for i in range(0, len(keep), run):
+            part = keep[i:i + run]
+            pages = {b: self._spill_ahead[b] for b, _, _ in part
+                     if b in self._spill_ahead}
+            missing = [b for b, _, _ in part if b not in pages]
+            if missing:
+                try:
+                    pages.update(zip(missing,
+                                     self.runner.gather_page_list(missing)))
+                except Exception:
+                    log.exception("prefix spill of %d blocks failed",
+                                  len(missing))
+                    return
+            for bid, h, (slot, lora_name, tokens) in part:
+                k, v = pages.pop(bid)
+                tier.put(h, {"tokens": tokens, "k": k, "v": v,
+                             "lora_slot": slot, "lora_name": lora_name,
+                             "weights_version": self.weights_version,
+                             "kv_dtype": self.runner.kv_dtype_name,
+                             "model": self.model_fingerprint,
+                             "nbytes": int(k.nbytes + v.nbytes)})
+
+    def _demote_entry(self, entry: dict) -> None:
+        """Host-tier watermark victim -> the cluster table (tier 2)."""
+        if self.cluster_store is not None:
+            self.cluster_store.publish(entry)
 
     def _promote_prefix(self, req: _Request) -> int:
-        """Extend req's cached-chain attachment past the device tier from
-        host RAM, block by block: each promoted block is scattered into a
-        fresh device page and registered under the local digest chain.
-        Returns tokens saved."""
+        """Extend req's cached-chain attachment past the device tier: host
+        RAM block by block, then ONE cluster-table fetch for the rest of
+        the chain. Each tier's blocks go to fresh device pages in one
+        batched scatter and are registered under the local digest chain,
+        so the next prompt sharing them hits the device tier. A block is
+        taken only if its tokens equal the prompt's (for the table this
+        check is the forgery guard), its weights version is this
+        engine's and, for the table, it is of this engine's model; under
+        pool pressure the cluster run is cut short, and the table is not
+        asked at all while a fetched block is expected to cost more than
+        prefilling it (_fetch_pays). Returns tokens saved.
+
+        The host walk keeps the JAX engine's order block for block (a read
+        of the tier, then a page, whose recycled parked block spills to
+        the tier, where a later read of the walk may find it), so blocks,
+        counters and tokens are the same; only the device work is
+        batched: at the walk's first recycle, the parked blocks the rest
+        of it can recycle are gathered in one copy (_gather_ahead), and
+        the promoted pages go up in one."""
         bm = self.block_manager
         bs = self.block_size
         limit = min(len(req.prefix_hashes), (len(req.prompt) - 1) // bs)
+        lora_name = self._lora_name(req.lora_slot)
         promoted = 0
-        tier = self.host_prefix_tier
         t_adopt0 = time.time()
-        while tier is not None and len(req.blocks) < limit:
-            j = len(req.blocks)
-            e = tier.get(req.prefix_hashes[j])
-            if (e is None
-                    or e.get("weights_version") != self.weights_version
-                    or e.get("lora_name") != self._lora_name(req.lora_slot)
-                    or tuple(e["tokens"])
-                    != tuple(req.prompt[:(j + 1) * bs])):
-                break
-            ids = bm.adopt_blocks(1)
-            if ids is None:
-                break
-            self.runner.scatter_pages(ids, e["k"], e["v"])
-            req.blocks.extend(ids)
-            bm.register_adopted_block(ids[0], req.prefix_hashes[j],
-                                      req.lora_slot, e["tokens"])
-            promoted += bs
-            self.host_prefix_hits += 1
-            self.host_prefix_tokens_saved += bs
+        tier = self.host_prefix_tier
+        e = (tier.get(req.prefix_hashes[len(req.blocks)])
+             if tier is not None and len(req.blocks) < limit else None)
+        if e is not None:
+            ids, pages, gathered = [], [], False
+            try:
+                while True:
+                    j = len(req.blocks)
+                    if (e is None or e.get("weights_version")
+                            != self.weights_version
+                            or e.get("lora_name") != lora_name
+                            or tuple(e["tokens"])
+                            != tuple(req.prompt[:(j + 1) * bs])):
+                        break
+                    if not gathered and not bm.free:
+                        self._gather_ahead(req, j, limit)
+                        gathered = True
+                    got = bm.adopt_blocks(1)
+                    if got is None:
+                        break
+                    ids += got
+                    pages.append((e["k"], e["v"]))
+                    req.blocks.extend(got)
+                    bm.register_adopted_block(got[0], req.prefix_hashes[j],
+                                              req.lora_slot, e["tokens"])
+                    if len(req.blocks) >= limit:
+                        break
+                    e = tier.get(req.prefix_hashes[len(req.blocks)])
+            finally:
+                self._spill_ahead = {}
+            if ids:
+                self.runner.scatter_page_list(ids, pages)
+            promoted += len(ids) * bs
+            self.host_prefix_hits += len(ids)
+            self.host_prefix_tokens_saved += len(ids) * bs
+        if (self.cluster_store is not None and len(req.blocks) < limit
+                and lora_name is not None and self._fetch_pays()):
+            from ray_tpu_torch.llm.prefix_store import cluster_chain
+
+            j0 = len(req.blocks)
+            chain = cluster_chain(req.prompt[:limit * bs], bs, lora_name)
+            shape, width = self.runner.block_page_layout
+            t0 = time.perf_counter()
+            rows = self.cluster_store.lookup_pages(
+                chain[j0:limit], lora_id=lora_name,
+                weights_version=self.weights_version,
+                model=self.model_fingerprint)
+            if rows:
+                self._fetch_s_per_block = _ema(
+                    self._fetch_s_per_block,
+                    (time.perf_counter() - t0) / len(rows))
+            run = []
+            for e in rows:
+                want = [int(t) for t in req.prompt[:(j0 + len(run) + 1)
+                                                   * bs]]
+                if [int(t) for t in e["tokens"]] != want:
+                    break  # token verification is the forgery guard
+                if (np.shape(e["k"]) != shape
+                        or np.dtype(e["k"].dtype).itemsize != width):
+                    break  # a row without a fingerprint, of another shape
+                run.append((e, want))
+            ids = None
+            while run:  # pool pressure: adopt a shorter prefix
+                ids = bm.adopt_blocks(len(run))
+                if ids is not None:
+                    break
+                run.pop()
+            if run:
+                self.runner.scatter_page_list(
+                    ids, [(e["k"], e["v"]) for e, _ in run])
+                for bid, (_, want) in zip(ids, run):
+                    bm.register_adopted_block(
+                        bid, req.prefix_hashes[len(req.blocks)],
+                        req.lora_slot, want)
+                    req.blocks.append(bid)
+                promoted += len(run) * bs
+                self.cluster_prefix_hits += len(run)
+                self.cluster_prefix_tokens_saved += len(run) * bs
         if promoted and tracing.enabled():
             # Tokens the prefill did not recompute show up in the request's
             # trace as a named span instead of unexplained TTFT variance.
@@ -869,6 +1016,46 @@ class LLMEngine:
                     "llm:prefix_adopt", "llm", t_adopt0, time.time(),
                     request_id=req.id, tokens_saved=promoted)
         return promoted
+
+    def _gather_ahead(self, req: _Request, j: int, limit: int) -> None:
+        """Gather, in one copy, the parked blocks that the host walk from
+        block j on can recycle: one a block the walk can still take, and
+        it can take no block past the run of the prompt's digests held by
+        the tier or by a parked block (whose spill the walk may find)."""
+        bm = self.block_manager
+        tier = self.host_prefix_tier
+        n = 0
+        while j + n < limit and (req.prefix_hashes[j + n] in tier
+                                 or req.prefix_hashes[j + n] in bm.cached):
+            n += 1
+        ahead = self._spillable(
+            (b, bm.block_hash[b]) for b in islice(bm.reusable, n))
+        if ahead:
+            bids = [b for b, _, _ in ahead]
+            self._spill_ahead = dict(zip(
+                bids, self.runner.gather_page_list(bids)))
+
+    def _fetch_pays(self) -> bool:
+        """Whether to ask the cluster table: a fetched block is expected
+        to cost no more than prefilling its tokens, from the costs this
+        engine has seen. Until both are seen it asks (the first fetch
+        measures); of the fetches it refuses, every FETCH_REPROBE-th goes
+        ahead, so the estimate follows the load."""
+        f, p = self._fetch_s_per_block, self._prefill_s_per_token
+        if f is None or p is None or f <= p * self.block_size:
+            return True
+        self.table_fetches_skipped += 1
+        return self.table_fetches_skipped % FETCH_REPROBE == 0
+
+    def _note_prefill(self, req: _Request, now: float) -> None:
+        """A request's first token: where its admission found nothing in
+        the host tier or the table and it prefilled a block or more, its
+        time from admission over those tokens is a sample of the prefill
+        cost a token (_fetch_pays)."""
+        clock, req.prefill_clock = req.prefill_clock, None
+        if clock is not None and clock[1] >= self.block_size:
+            self._prefill_s_per_token = _ema(
+                self._prefill_s_per_token, (now - clock[0]) / clock[1])
 
     def adopt_prefix(self, state: dict, k_pages, v_pages) -> int:
         """Adopt prefix blocks pushed by a draining peer (export_prefixes'
@@ -992,6 +1179,17 @@ class LLMEngine:
                 "host_prefix_demotions": t["demotions"],
                 "host_prefix_hits": self.host_prefix_hits,
                 "host_prefix_tokens_saved": self.host_prefix_tokens_saved,
+            })
+        if self.cluster_store is not None:
+            c = self.cluster_store.stats()
+            out.update({
+                "cluster_prefix_published": c["published"],
+                "cluster_prefix_adopted_blocks": c["adopted_blocks"],
+                "cluster_prefix_stale_rejected": c["stale_rejected"],
+                "cluster_prefix_hits": self.cluster_prefix_hits,
+                "cluster_prefix_tokens_saved":
+                    self.cluster_prefix_tokens_saved,
+                "table_fetches_skipped": self.table_fetches_skipped,
             })
         lm = self.runner.lora
         if lm is not None:
@@ -1121,12 +1319,18 @@ class LLMEngine:
                         req.prompt, req.lora_slot)
                 cached_tokens = self.block_manager.match_prefix(
                     req, req.prefix_hashes)
-                # Device tier exhausted: promote from host RAM, so spilled
-                # blocks re-enter fresh device pages instead of
-                # re-prefilling.
-                if self.host_prefix_tier is not None:
-                    cached_tokens += self._promote_prefix(req)
+                # Device tier exhausted: promote from host RAM, then the
+                # cluster table, so spilled blocks re-enter fresh device
+                # pages instead of re-prefilling.
+                promoted = 0
+                if (self.host_prefix_tier is not None
+                        or self.cluster_store is not None):
+                    promoted = self._promote_prefix(req)
+                    cached_tokens += promoted
                 req.registered_blocks = len(req.blocks)
+                req.prefill_clock = (
+                    None if promoted or self.cluster_store is None
+                    else (time.time(), len(req.context) - cached_tokens))
             if not self.block_manager.allocate(req, len(req.context) + 1):
                 raise RuntimeError("KV pool changed between check and "
                                    "allocation")
@@ -1712,6 +1916,7 @@ class LLMEngine:
         now = time.time()
         if req.timing["t_first_token"] is None:
             req.timing["t_first_token"] = now
+            self._note_prefill(req, now)
         req.timing["t_last_token"] = now
         self._check_finished(req)
         done = req.finished_reason is not None

@@ -1058,14 +1058,34 @@ class ModelRunner:
         "float32"): host copies of bf16 pages are its uint16 bits."""
         return str(self.cache["k"].dtype).replace("torch.", "")
 
-    def _page_ids(self, block_ids: Sequence[int]) -> torch.Tensor:
+    @property
+    def block_page_layout(self):
+        """(shape, bytes an element) of one block's k (or v) host array
+        in gather_page_list's layout: what a page from elsewhere must have
+        to be scattered into this pool."""
+        pool = self.cache["k"]
+        shape = ((pool.shape[0], self.config.n_kv_heads, 1)
+                 + tuple(pool.shape[3:]))
+        return shape, pool.element_size()
+
+    @property
+    def block_nbytes(self) -> int:
+        """Host bytes of one block's k and v pages together."""
+        shape, width = self.block_page_layout
+        return 2 * width * int(np.prod(shape))
+
+    def _check_ids(self, block_ids: Sequence[int]) -> None:
         """Explicit pool pages only: no drop sentinel (-1 would wrap onto
         the last page), never the scratch page."""
-        ids = [int(b) for b in block_ids]
-        bad = [b for b in ids if not 0 <= b < self.num_blocks]
+        bad = [b for b in (int(b) for b in block_ids)
+               if not 0 <= b < self.num_blocks]
         if bad:
             raise ValueError(f"page ids {bad} outside [0, {self.num_blocks})")
-        return torch.tensor(ids, dtype=torch.long).to(self.device)
+
+    def _page_ids(self, block_ids: Sequence[int]) -> torch.Tensor:
+        self._check_ids(block_ids)
+        return torch.tensor([int(b) for b in block_ids],
+                            dtype=torch.long).to(self.device)
 
     def gather_pages(self, block_ids: Sequence[int]):
         """The KV pages backing `block_ids` as host arrays, each
@@ -1073,9 +1093,73 @@ class ModelRunner:
         layout (every kv head, whatever the tp). bf16 pages come back as
         their uint16 bits (numpy has no bf16). The copy runs on the
         current stream, after every step queued there."""
-        self._page_ids(block_ids)
+        self._check_ids(block_ids)
         return tuple(to_numpy(t) for t in
                      self._gather_pages([int(b) for b in block_ids]))
+
+    def gather_page_list(self, block_ids: Sequence[int]):
+        """gather_pages split per block: [(k, v)] with each array
+        (n_layers, n_kv_heads, 1, block_size, head_dim), from one gather
+        for the whole list and one synchronize. Each block's k and v are
+        the two halves of a host buffer of that block's own (pinned on the
+        card: torch's caching host allocator), copied into asynchronously,
+        so whoever keeps a block keeps its bytes and no more; and
+        scatter_page_list uploads such arrays asynchronously."""
+        self._check_ids(block_ids)
+        # (n, 2, L, K, bs, d): the block axis first, each block contiguous.
+        dev = torch.stack([t.movedim(2, 0) for t in
+                           self._gather_pages([int(b) for b in block_ids])],
+                          dim=1)
+        host = []
+        for i in range(len(block_ids)):
+            h = torch.empty(dev[i].shape, dtype=dev.dtype,
+                            pin_memory=dev.is_cuda)
+            host.append(h.copy_(dev[i], non_blocking=True))
+        if dev.is_cuda:
+            torch.cuda.current_stream(self.device).synchronize()
+        out = []
+        for h in host:
+            kv = to_numpy(h)
+            out.append((kv[0][:, :, None], kv[1][:, :, None]))
+        return out
+
+    def reserve_host_pages(self, n: int) -> None:
+        """Page-lock n blocks' host buffers (gather_page_list's) once and
+        hand them to torch's caching host allocator, which keeps them for
+        reuse: the first spills and promotions then lock no memory of
+        their own. Nothing to do off the card."""
+        if self.device.type != "cuda" or n <= 0:
+            return
+        bufs = [torch.empty(self.block_nbytes, dtype=torch.uint8,
+                            pin_memory=True) for _ in range(n)]
+        del bufs
+
+    def fingerprint(self) -> str:
+        """A digest of the model this runner serves: its config and a
+        corner of every parameter (the first 4 entries along each dim,
+        only global index 0 along a tensor-parallel one, which rank 0
+        holds), so every tensor-parallel degree of one model gives one
+        value and two models of one shape (other seeds, a fine-tune) give
+        two. The cluster prefix table's rows carry it, and an adopter
+        takes no KV of another model."""
+        import hashlib
+
+        h = hashlib.blake2b(repr(self.config).encode(), digest_size=16)
+
+        def leaves(tree, keys=()):
+            for k in sorted(tree):
+                if isinstance(tree[k], dict):
+                    yield from leaves(tree[k], keys + (k,))
+                else:
+                    yield keys + (k,), tree[k]
+
+        for keys, p in leaves(self.params):
+            spec = spec_for(param_axes_at(keys), SERVE_RULES)
+            corner = p[tuple(slice(0, 1 if "tp" in axes else 4)
+                             for axes in spec)]
+            h.update("/".join(keys).encode())
+            h.update(to_numpy(corner.float()).tobytes())
+        return h.hexdigest()
 
     @_fanned
     def _gather_pages(self, block_ids):
@@ -1093,7 +1177,7 @@ class ModelRunner:
         uint16 bits, or tensors) into the pool at `block_ids`, in place:
         the pool a captured graph holds is never reallocated. Under tp
         each rank keeps its kv heads."""
-        self._page_ids(block_ids)
+        self._check_ids(block_ids)
         pool = self.cache["k"]
         want = ((pool.shape[0], self.config.n_kv_heads, len(block_ids))
                 + pool.shape[3:])
@@ -1105,6 +1189,30 @@ class ModelRunner:
                                  f"takes {tuple(want)}")
             pages.append(t)
         self._scatter_pages([int(b) for b in block_ids], *pages)
+
+    def scatter_page_list(self, block_ids: Sequence[int], pages) -> None:
+        """scatter_pages of one (k, v) pair per block, each array in
+        gather_page_list's shape, with ONE write into the pool a side: the
+        blocks are copied into one device buffer (asynchronously from
+        pinned memory, gather_page_list's), which then goes to the pool.
+        Returns once every host copy is done, so the caller may drop or
+        reuse the arrays."""
+        dtype = self.cache["k"].dtype
+        shape = (2, len(pages)) + tuple(np.shape(pages[0][0]))
+        dev = torch.empty(shape, dtype=dtype, device=self.device)
+        for i, kv in enumerate(pages):
+            for side in (0, 1):
+                dev[side, i].copy_(_device_pages(kv[side], dtype, "cpu"),
+                                   non_blocking=True)
+        done = torch.cuda.Event() if dev.is_cuda else None
+        if done is not None:
+            done.record()
+        # (2, n, L, K, 1, bs, d) -> gather_pages' (L, K, n, bs, d) a side.
+        k, v = (dev[side].squeeze(3).movedim(0, 2).contiguous()
+                for side in (0, 1))
+        self.scatter_pages(block_ids, k, v)
+        if done is not None:
+            done.synchronize()
 
     @_fanned
     def _scatter_pages(self, block_ids, k_pages, v_pages):

@@ -49,14 +49,16 @@ RouterCore, LocalReplica and FleetSupervisor are cluster-free (replicas
 are anything with a `.call(method, *args)` surface, scaling actions are
 injected callbacks), so tests drive them against in-process servers;
 ActorReplica and LLMRouter, the serve deployment around them, run on the
-port's runtime. The JAX supervisor's fallback to the cluster prefix
-store (owner hints across router restarts, the dead owner's rows purged
-on ejection) waits for that store (ROADMAP.md queue 1 item 6.3).
+port's runtime. With a cluster prefix store (llm/prefix_store.py) the
+supervisor falls back to the table's owner hints where its own owner LRU
+misses (a new router, an ejected owner), and blanks an ejected replica's
+hints in the same tick.
 """
 
 from __future__ import annotations
 
 import collections
+import logging
 import os
 import re
 import threading
@@ -65,6 +67,8 @@ import uuid
 from typing import Any, Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 from ray_tpu_torch.llm.engine import prefix_digest_chain
+
+log = logging.getLogger(__name__)
 
 # Load-score weight of KV occupancy relative to one queued request: a
 # replica with a full cache is one whose next admission will evict reusable
@@ -492,7 +496,8 @@ class FleetSupervisor:
                  prefill_replicas: Sequence[Any] = (),
                  policy: Any = None,
                  scale_up_fn: Optional[Callable[[int], Any]] = None,
-                 retire_fn: Optional[Callable[[int], Any]] = None):
+                 retire_fn: Optional[Callable[[int], Any]] = None,
+                 prefix_store: Any = None):
         from ray_tpu_torch.runtime import metric_defs as md
 
         self.core = core
@@ -500,6 +505,10 @@ class FleetSupervisor:
         self.prefill_replicas: List[Any] = list(prefill_replicas)
         self.deployment = deployment
         self.policy = policy
+        # Cluster prefix table client (llm/prefix_store.py), optional: the
+        # owner LRU's fallback after an owner's ejection or a restart, and
+        # the same-tick hygiene when a replica is ejected.
+        self.prefix_store = prefix_store
         self._scale_up_fn = scale_up_fn
         self._retire_fn = retire_fn
         self._lock = threading.Lock()        # replica list + drain state
@@ -587,6 +596,20 @@ class FleetSupervisor:
             return None
         self._handoff_addrs.pop(idx, None)
         self._m_healthy.set(self.core.healthy_count())
+        # Same-tick hygiene of the cluster table, beside the owner-LRU prune
+        # above: blank the dead replica's live-owner hints so no lookup
+        # routes a request to it. The rows stay: the pages are GCS-homed
+        # and any survivor adopts them.
+        if self.prefix_store is not None:
+            with self._stats_lock:
+                s = self._stats[idx] if idx < len(self._stats) else None
+            tag = (s or {}).get("replica") or ""
+            if tag:
+                try:
+                    self.prefix_store.purge(owner_replica=tag,
+                                            clear_owner_only=True)
+                except Exception:
+                    log.exception("owner-hint purge of %s failed", tag)
         events.emit(
             events.LLM_REPLICA_EJECTED,
             f"replica {idx} ejected: {reason or 'unhealthy'} "
@@ -834,6 +857,15 @@ class FleetSupervisor:
             except NoHealthyReplicasError as e:
                 return {"error": {"code": 503, "type": "no_healthy_replicas",
                                   "message": str(e)}}
+            if decision["reason"] == "pow2" and self.prefix_store is not None:
+                # Local owner-LRU miss: the cluster prefix table remembers
+                # owners across router restarts and owner ejection. A live
+                # owner hint re-establishes local affinity; no hint is fine,
+                # since whoever was picked adopts the GCS-homed pages.
+                better = self._cluster_affinity(token_prompt, request,
+                                                tried)
+                if better is not None:
+                    idx = better
             if first_attempt:
                 # Admission gates the FIRST attempt only: a failover replay
                 # has already consumed prefill work somewhere, and shedding
@@ -888,6 +920,35 @@ class FleetSupervisor:
                 tried.add(idx)
             finally:
                 self.core.finish(idx)
+
+    def _cluster_affinity(self, token_prompt: List[int], request: Dict,
+                          tried: Set[int]) -> Optional[int]:
+        """Map the cluster table's owner hint for this prompt's prefix to a
+        routable replica index (replica tags come from engine_stats). None
+        on a miss, a dead hint or a store error: the pow2 pick stands."""
+        from ray_tpu_torch.llm.prefix_store import cluster_chain
+
+        lora = request.get("lora_name") or ""
+        try:
+            chain = cluster_chain(token_prompt, self.core.block_size, lora)
+            if not chain:
+                return None
+            hit = self.prefix_store.lookup_owner(chain, lora_id=lora)
+        except Exception:
+            log.exception("cluster owner lookup failed")
+            return None
+        if not hit or not hit.get("owner_replica"):
+            return None
+        with self._stats_lock:
+            stats_now = list(self._stats)
+        for i, s in enumerate(stats_now):
+            if ((s or {}).get("replica") == hit["owner_replica"]
+                    and i not in tried and self.core.is_routable(i)):
+                # Re-seed the local owner LRU so follow-ups skip the probe.
+                self.core._remember(self.core.digest_chain(
+                    token_prompt, request.get("lora_name")), i)
+                return i
+        return None
 
     def _disagg_completions(self, request: Dict, decode_idx: int,
                             token_prompt: List[int]) -> Dict:
@@ -1054,12 +1115,21 @@ class LLMRouter:
                 if not isinstance(pol_cfg, ReplicaPolicy):
                     pol_cfg = ReplicaPolicy(pol_cfg)
                 policy = pol_cfg
+            prefix_store = None
+            if self.config.cluster_prefix_store:
+                from ray_tpu_torch.llm.prefix_store import ClusterPrefixStore
+
+                store = ClusterPrefixStore(self.config.block_size,
+                                           deployment=self.deployment)
+                if store.available():
+                    prefix_store = store
             # supervisor is the publication barrier: assigned LAST, so a
             # racing reader that sees it non-None sees resolved state too.
             sup = FleetSupervisor(
                 self.core, self.replicas, deployment=self.deployment,
                 prefill_replicas=self.prefill_replicas, policy=policy,
-                scale_up_fn=self._scale_up, retire_fn=self._retire)
+                scale_up_fn=self._scale_up, retire_fn=self._retire,
+                prefix_store=prefix_store)
             self.supervisor = sup
             self._start_control_loop()
 

@@ -8,7 +8,10 @@ batched engine. Requests may name a LoRA adapter (`lora_name`); adapters
 load at build (`LLMConfig.lora_adapters`) or at run time
 (`load_lora_adapter`), and the slot pool may scale itself
 (`lora_autoscale`). Evicted prefix blocks spill to a host tier
-(`host_prefix_mb`). Weights come from `params`, from a manifest-format
+(`host_prefix_mb`) whose overflow is published to the cluster prefix
+table in the GCS when the port's runtime is up in the server's process
+(`cluster_prefix_store`); any server of the cluster adopts from it.
+Weights come from `params`, from a manifest-format
 checkpoint (`params_checkpoint`) or from `seed`; `tensor_parallel=N`
 serves them on N cards as rank 0 of a world whose other ranks hold their
 shards (llm/tp.py), and `close()` stops those ranks.
@@ -29,8 +32,7 @@ port's runtime (ray_tpu_torch/serve) whose replicas take
 behind the HTTP ingress. With routing="affinity" or disaggregate > 0,
 `build_routed_app` puts the LLM router deployment (llm/router.py) in
 front of the engine tier and, for disaggregate > 0, a tier of
-`PrefillServer` replicas. The cluster prefix tier is not ported: an
-LLMServer inside the port's runtime refuses cluster_prefix_store=True.
+`PrefillServer` replicas.
 """
 
 from __future__ import annotations
@@ -48,7 +50,6 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from ray_tpu_torch import serve
-from ray_tpu_torch.core.exceptions import _unported
 from ray_tpu_torch.llm.disagg import (KVStreamServer, _completion_response,
                                       migrate_session, send_handoff)
 from ray_tpu_torch.llm.sampling import SamplingParams
@@ -137,12 +138,12 @@ class LLMConfig:
     slo_ttft_s: float = 0.0
     disaggregate: int = 0
     stream_timeout_s: float = 300.0
-    # Host prefix tier (llm/prefix_store.py): evicted prefix blocks spill
-    # to host RAM and are promoted back at admission; 0 disables it. The
-    # cluster tier is not ported: outside a cluster the JAX server leaves
-    # it off too, and here it stays off; inside one (the port's runtime
-    # initialized in the server's process) cluster_prefix_store=True
-    # refuses, so callers there pass False.
+    # Tiered prefix store (llm/prefix_store.py): evicted prefix blocks
+    # spill to host RAM and are promoted back at admission (0 MB disables
+    # it); past the host tier's watermark they are published to the GCS
+    # prefix table, from which any server adopts them. The cluster tier is
+    # kept only where the port's runtime is initialized in the server's
+    # process; elsewhere it degrades to none, as the JAX server's does.
     host_prefix_mb: float = 32.0
     host_prefix_low_watermark: float = 0.8
     cluster_prefix_store: bool = True
@@ -283,14 +284,6 @@ class LLMServer:
 
     def __init__(self, llm_config: LLMConfig, params: Optional[Dict] = None,
                  cuda_graphs: Optional[bool] = None):
-        from ray_tpu_torch.core import worker as worker_mod
-
-        if llm_config.cluster_prefix_store and worker_mod.is_initialized():
-            # Inside a cluster the JAX server publishes to and adopts from
-            # the GCS prefix table; the port has no such store yet.
-            raise _unported("cluster prefix store (an LLMServer inside the "
-                            "port's runtime; pass cluster_prefix_store="
-                            "False; ROADMAP.md queue 1 item 6.3)")
         self.engine = build_engine(llm_config, params, cuda_graphs)
         self._scope = _cuda_scope(self.engine.runner.device)
         self._replica_tag = f"{os.getpid()}-{uuid.uuid4().hex[:6]}"
@@ -298,12 +291,26 @@ class LLMServer:
         self.tokenizer = llm_config.tokenizer
         self._timeout_s = llm_config.stream_timeout_s
         self._lock = threading.Lock()
-        if llm_config.host_prefix_mb > 0:
-            from ray_tpu_torch.llm.prefix_store import HostPrefixTier
+        # Tiered prefix store: the host spill tier and the cluster table,
+        # each optional per config; the cluster tier degrades to None
+        # outside a cluster (in-process servers, tests).
+        from ray_tpu_torch.llm.prefix_store import (ClusterPrefixStore,
+                                                    HostPrefixTier)
 
-            self.engine.attach_prefix_store(host_tier=HostPrefixTier(
+        host_tier = cluster_store = None
+        if llm_config.host_prefix_mb > 0:
+            host_tier = HostPrefixTier(
                 int(llm_config.host_prefix_mb * (1 << 20)),
-                low_watermark=llm_config.host_prefix_low_watermark))
+                low_watermark=llm_config.host_prefix_low_watermark)
+        if llm_config.cluster_prefix_store:
+            store = ClusterPrefixStore(
+                llm_config.block_size, replica=self._replica_tag,
+                deployment=llm_config.deployment_name)
+            if store.available():
+                cluster_store = store
+        if host_tier is not None or cluster_store is not None:
+            self.engine.attach_prefix_store(host_tier=host_tier,
+                                            cluster_store=cluster_store)
         # LoRA pool autoscaling: ticked at 1 Hz from the engine loop.
         self._lora_policy = None
         if llm_config.lora_autoscale and self.engine.runner.lora is not None:

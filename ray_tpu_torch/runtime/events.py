@@ -8,10 +8,12 @@ take down the component that noticed the problem.
 
 Emitters in the port: the LLM router's fleet supervisor (llm/router.py)
 — LLM_REQUEST_SHED, LLM_REQUEST_FAILOVER, LLM_SESSION_MIGRATED,
-LLM_REPLICA_EJECTED, LLM_REPLICAS_SCALED. The other types are the JAX
-package's closed set, kept so records and filters read the same in both
-packages; their emitters (drain, the memory monitor, the autoscaler,
-Train, the stall detector, alerts) are not ported yet.
+LLM_REPLICA_EJECTED, LLM_REPLICAS_SCALED — and the cluster prefix store
+(llm/prefix_store.py) — LLM_PREFIX_SPILLED, LLM_PREFIX_ADOPTED. The
+other types are the JAX package's closed set, kept so records and
+filters read the same in both packages; their emitters (drain, the
+memory monitor, the autoscaler, Train, the stall detector, alerts) are
+not ported yet.
 
 Read back through `state.list_cluster_events()`.
 """

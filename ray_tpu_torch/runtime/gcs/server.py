@@ -3,9 +3,9 @@
 The port's copy of ray_tpu/runtime/gcs/server.py, cut to the node table
 and heartbeats (with the versioned resource view), KV, pubsub, jobs,
 actors (create, get, kill, worker death, restart), placement groups,
-object locations, the cluster event ring and shutdown. The JAX GCS's
-other handlers are
-registered as refusals (UNPORTED_HANDLERS).
+object locations, the cluster event ring, the cluster prefix table and
+shutdown. The JAX GCS's other handlers are registered as refusals
+(UNPORTED_HANDLERS).
 
 Reference analog: src/ray/gcs/gcs_server/ (GcsServer gcs_server.h:89). One per
 cluster. Owns: internal KV (function/class table lives here —
@@ -25,17 +25,17 @@ import time
 from typing import Any, Dict, List, Optional, Set, Tuple
 
 from ray_tpu_torch.core.task_spec import ActorSpec
-from ray_tpu_torch.runtime.rpc import RpcClient, RpcServer, ServerConnection
+from ray_tpu_torch.runtime.rpc import (RawReply, RpcClient, RpcServer,
+                                       ServerConnection)
 from ray_tpu_torch.runtime import scheduling, wire
 
 logger = logging.getLogger(__name__)
 
 # Handlers of the JAX package's GCS not ported yet (ROADMAP.md queue 1
-# item 6): the cluster prefix store, checkpoint shards, metrics history,
-# link utilization, alerts, task events and the timeline, the wait graph,
+# items 6.4 and 7d): checkpoint shards, metrics history, link
+# utilization, alerts, task events and the timeline, the wait graph,
 # autoscaler demand, and drain.
 UNPORTED_HANDLERS = (
-    "prefix_upsert", "prefix_lookup", "prefix_purge",
     "register_checkpoint_shards", "list_checkpoint_shards",
     "report_metrics2", "metrics_history", "metrics_history_stats",
     "link_utilization", "list_alerts", "report_task_events", "report_task_events2", "task_event_stats",
@@ -497,6 +497,11 @@ class GcsServer:
             for oid in [o for o, holder in table.items()
                         if holder == node_id]:
                 table.pop(oid, None)
+        # The prefix table's owner hints, in the same tick: the dead
+        # node's replicas never touch their published prefixes again, so
+        # no router may be sent to them by a hint. The GCS-homed pages
+        # stay adoptable by any survivor.
+        self._purge_prefix_entries(node_id=node_id, clear_owner_only=True)
         await self.publish("node", {"event": "removed", "node": rec.view(), "reason": reason})
         # Fail/restart actors that lived on that node.
         for actor in list(self._actors.values()):
@@ -578,6 +583,141 @@ class GcsServer:
         return out
 
     # ---- pubsub ----------------------------------------------------------
+
+    # ---- cluster prefix store (llm/prefix_store.py) -----------------------
+    #
+    # digest -> published KV prefix pages + adoption metadata. The page
+    # bytes live HERE, not in a worker's object store: a worker's objects
+    # are reaped when their owner dies, the event a published prefix must
+    # survive. Traffic is raw-frame RPC both ways (rpc.py call_raw), so no
+    # page byte is pickled. A byte-capacity LRU keeps replicas from
+    # flooding the head node's RAM.
+
+    PREFIX_STORE_CAPACITY = 256 << 20
+
+    def _prefix_table(self):
+        tbl = getattr(self, "_prefix_entries", None)
+        if tbl is None:
+            from collections import OrderedDict
+
+            tbl = self._prefix_entries = OrderedDict()
+            self._prefix_bytes = 0
+        return tbl
+
+    @staticmethod
+    def _prefix_row_msg(key: bytes, row: dict):
+        return wire.PrefixEntryMsg(
+            digest=key, lora_id=row["lora_id"],
+            weights_version=row["weights_version"],
+            block_size=row["block_size"], n_tokens=row["n_tokens"],
+            token_ids=row["token_ids"], nbytes=len(row["payload"]),
+            owner_replica=row["owner_replica"], node_id=row["node_id"],
+            deployment=row["deployment"])
+
+    async def handle_prefix_upsert(self, conn, m, payload):
+        ent = wire.PrefixEntryMsg.decode(bytes(m))
+        buf = bytes(payload)
+        if not ent.digest or not buf or not ent.token_ids:
+            return RawReply(wire.AckMsg(
+                ok=False, error="empty prefix upsert").encode())
+        tbl = self._prefix_table()
+        key = bytes(ent.digest)
+        old = tbl.pop(key, None)
+        if old is not None:
+            self._prefix_bytes -= len(old["payload"])
+        tbl[key] = {
+            "lora_id": ent.lora_id, "weights_version": ent.weights_version,
+            "block_size": ent.block_size, "n_tokens": ent.n_tokens,
+            "token_ids": list(ent.token_ids),
+            "owner_replica": ent.owner_replica,
+            "node_id": bytes(ent.node_id), "deployment": ent.deployment,
+            "payload": buf, "time": time.time()}
+        self._prefix_bytes += len(buf)
+        while tbl and self._prefix_bytes > self.PREFIX_STORE_CAPACITY:
+            _, victim = tbl.popitem(last=False)
+            self._prefix_bytes -= len(victim["payload"])
+        return RawReply(wire.AckMsg(ok=True,
+                                    existed=old is not None).encode())
+
+    async def handle_prefix_lookup(self, conn, m, payload):
+        """Answer with the CONTIGUOUS run of rows held from digests[0] on
+        (the caller lists its missing chain, longest last); the reply
+        payload is their page buffers concatenated (self-delimiting
+        frames, so the adopter splits them apart)."""
+        q = wire.PrefixLookupMsg.decode(bytes(m))
+        tbl = self._prefix_table()
+        entries, bufs = [], []
+        for d in (q.digests or ()):
+            key = bytes(d)
+            row = tbl.get(key)
+            # weights_version <= 0 means "any": the router's owner probe
+            # does not know the fleet's version. Adopters pass theirs and
+            # check it again per row, so a relaxed probe never brings
+            # stale KV into an engine.
+            if (row is None or row["lora_id"] != q.lora_id
+                    or (q.weights_version > 0
+                        and row["weights_version"] != q.weights_version)
+                    or row["block_size"] != q.block_size):
+                break
+            tbl.move_to_end(key)
+            if q.replica:
+                # The adopter is about to hold these pages hot: it becomes
+                # the live-owner hint the router's fallback routes to.
+                row["owner_replica"] = q.replica
+            entries.append(self._prefix_row_msg(key, row))
+            if q.want_payload:
+                bufs.append(row["payload"])
+        reply = wire.PrefixLookupReplyMsg(found=bool(entries),
+                                          entries=entries)
+        return RawReply(reply.encode(), payload=b"".join(bufs))
+
+    async def handle_prefix_purge(self, conn, m, payload):
+        q = wire.PrefixPurgeMsg.decode(bytes(m))
+        purged, cleared = self._purge_prefix_entries(
+            owner_replica=q.owner_replica, node_id=bytes(q.node_id),
+            deployment=q.deployment,
+            digests=[bytes(d) for d in (q.digests or ())],
+            below_weights_version=q.below_weights_version,
+            clear_owner_only=q.clear_owner_only)
+        return RawReply(wire.PrefixPurgeReplyMsg(
+            ok=True, purged=purged, owners_cleared=cleared).encode())
+
+    def _purge_prefix_entries(self, *, owner_replica: str = "",
+                              node_id: bytes = b"", deployment: str = "",
+                              digests=(), below_weights_version: int = 0,
+                              clear_owner_only: bool = False):
+        """Prune the prefix table (any selector matches; none matches
+        nothing). clear_owner_only blanks the live-owner hint but keeps
+        the row adoptable: the replica-death path, where the pages are
+        still valid but a hint naming a dead replica would misroute."""
+        tbl = getattr(self, "_prefix_entries", None)
+        if not tbl:
+            return 0, 0
+        digest_set = set(digests)
+
+        def match(key, row):
+            if key in digest_set:
+                return True
+            if owner_replica and row["owner_replica"] == owner_replica:
+                return True
+            if node_id and row["node_id"] == node_id:
+                return True
+            if deployment and row["deployment"] == deployment:
+                return True
+            return bool(below_weights_version
+                        and row["weights_version"] < below_weights_version)
+
+        purged = cleared = 0
+        for key in [k for k, r in tbl.items() if match(k, r)]:
+            if clear_owner_only:
+                tbl[key]["owner_replica"] = ""
+                tbl[key]["node_id"] = b""
+                cleared += 1
+            else:
+                row = tbl.pop(key)
+                self._prefix_bytes -= len(row["payload"])
+                purged += 1
+        return purged, cleared
 
     async def handle_subscribe(self, conn, channels: List[str]):
         for ch in channels:

@@ -9,8 +9,7 @@ packages' snapshots alike.
 
 The runtime's own metrics (tasks, leases, workers, the object store and
 plane, data, collectives) and the checkpoint plane's wait for the
-runtime's metrics history (ROADMAP.md queue 1 item 6.4), as do the prefix
-store tiers' counters (item 6.3).
+runtime's metrics history (ROADMAP.md queue 1 item 6.4).
 """
 
 from __future__ import annotations
@@ -108,6 +107,24 @@ LLM_REPLICAS_HEALTHY = Gauge(
     "ray_tpu_llm_replicas_healthy",
     "replicas the router currently considers live and routable",
     tag_keys=("deployment",))
+
+# Tiered KV prefix store (llm/prefix_store.py): tier="host" is the
+# server-local RAM spill pool, tier="store" the GCS-homed cluster table
+# that outlives a replica's death and restarts.
+LLM_PREFIX_SPILLS = Counter(
+    "ray_tpu_llm_prefix_spills_total",
+    "prefix KV pages demoted into a store tier instead of being dropped",
+    tag_keys=("tier",))                          # host | store
+LLM_PREFIX_ADOPTIONS = Counter(
+    "ray_tpu_llm_prefix_adoptions_total",
+    "spilled prefix blocks re-adopted into an engine (re-prefill avoided)",
+    tag_keys=("tier",))                          # host | store
+LLM_PREFIX_STORE_BYTES = Gauge(
+    "ray_tpu_llm_prefix_store_bytes",
+    "bytes currently held in this replica's host prefix tier")
+LLM_PREFIX_STALE_REJECTED = Counter(
+    "ray_tpu_llm_prefix_stale_rejected_total",
+    "spilled prefix entries refused at adoption (weights version mismatch)")
 
 
 ALL_METRICS = [v for v in list(globals().values())

@@ -13,11 +13,14 @@ down. Replicas take `num_gpus` whole cards where the JAX package's take
 
 from __future__ import annotations
 
+import logging
 import sys
 import time
 from typing import Dict, List
 
 import ray_tpu_torch as rt
+
+logger = logging.getLogger(__name__)
 
 
 def _replica_class(config: dict):
@@ -295,10 +298,25 @@ class ServeController:
         self.version += 1
         self._publish(name, self.version, "deleted")
         self._snapshot_to_kv()
-        # The JAX controller also purges the deployment's cluster prefix
-        # rows here (prefix_purge); the port's GCS refuses that handler and
-        # no port replica publishes rows (ROADMAP.md queue 1 item 6.3).
+        self._purge_prefix_entries(name)
         return True
+
+    @staticmethod
+    def _purge_prefix_entries(name: str):
+        """Drop the deployment's rows from the GCS cluster prefix table
+        (llm/prefix_store.py): a replica's death only blanks its owner
+        hints so survivors still adopt the pages, but deleting the
+        deployment retires the whole fleet, so its published KV is freed
+        outright. Fire-and-forget, as the JAX controller's."""
+        try:
+            from ray_tpu_torch.core.worker import global_worker
+            from ray_tpu_torch.runtime import wire
+
+            m = wire.PrefixPurgeMsg(deployment=name).encode()
+            core = global_worker()
+            core.io.spawn(core.gcs.call_raw("prefix_purge", m=m))
+        except Exception:
+            logger.exception("prefix table purge of %s failed", name)
 
     def global_version(self) -> int:
         return self.version

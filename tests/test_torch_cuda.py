@@ -24,7 +24,9 @@ replay after `load_adapter` or `update_weights` reads the new values,
 byte-exactly. The ring's chunk steps and merges equal whole-sequence
 flash attention, and a train step on a one-rank NCCL mesh equals the
 single-card step; one process starts and closes tensor-parallel worlds
-of 2 and 4 ranks one after another. A pipeline with stages on cuda:0 and the last card
+of 2 and 4 ranks one after another, and a tensor_parallel=2 server takes
+live migrations, a prefill handoff and a cluster-table adoption with one
+card's tokens. A pipeline with stages on cuda:0 and the last card
 equals the single-card step and launches the flash kernels as its
 schedule says.
 """
@@ -908,3 +910,132 @@ def test_two_tensor_parallel_worlds_in_one_process(cuda):
         assert not dist.is_initialized()
         got.setdefault(tp, []).append([o.output_token_ids for o in outs])
     assert all(run == got[1][0] for runs in got.values() for run in runs)
+
+
+def test_handoffs_into_a_tensor_parallel_server(cuda):
+    """A tensor_parallel=2 server (rank 0 holds the listener and writes
+    the whole pool through the fanned scatter_pages) takes live sessions
+    migrated from a one-card server and hands others back, takes a
+    prefill tier's handoff, and adopts a prefix another server published
+    to the cluster table (a GcsServer reached in process); every move
+    gives the one-card server's fp32 greedy tokens."""
+    import asyncio
+    import threading
+    import time
+
+    from ray_tpu_torch.llm.disagg import PrefillServer
+    from ray_tpu_torch.llm.prefix_store import (ClusterPrefixStore,
+                                                HostPrefixTier,
+                                                cluster_chain)
+    from ray_tpu_torch.llm.router import (LocalReplica, _migrated_mode,
+                                          prefill_with_retry)
+    from ray_tpu_torch.llm.serving import LLMConfig, LLMServer
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.runtime.gcs.server import GcsServer
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 or more GPUs (a tensor-parallel world)")
+    config = llama.LlamaConfig.tiny(d_model=512, n_heads=8, n_kv_heads=4,
+                                    max_seq=512, dtype=torch.float32)
+    gcs = GcsServer()
+
+    def bridge(method, m, payload=b""):
+        r = asyncio.run(getattr(gcs, f"handle_{method}")(None, m, payload))
+        return r.m, r.payload
+
+    def cfg(**kw):
+        return LLMConfig(**dict(dict(
+            model_config=config, seed=5, num_kv_blocks=128, block_size=16,
+            max_batch_size=4, prefill_chunk=32, warmup_buckets="light",
+            cluster_prefix_store=False), **kw))
+
+    prompts = [[(7 * s + 3 * i) % config.vocab_size for i in range(40 + s)]
+               for s in range(2)]
+    system = [(11 * i + 1) % config.vocab_size for i in range(96)]
+    adopt = dict(prompt=system + [3, 5, 7], max_tokens=16)
+
+    def ask(srv, p, rid):
+        return srv.completions(dict(prompt=p, max_tokens=24,
+                                    request_id=rid))["choices"][0][
+            "token_ids"]
+
+    def migrate(src, dst, tag):
+        got, threads = {}, []
+
+        def consume(i):
+            rid = f"{tag}-{i}"
+            try:
+                out = src.completions(dict(prompt=prompts[i], max_tokens=24,
+                                           request_id=rid))
+            except Exception as e:
+                mode = _migrated_mode(e)
+                assert mode is not None, e
+                out = (dst.completions_collect(rid) if mode == "kv"
+                       else dst.completions(dict(prompt=prompts[i],
+                                                 max_tokens=24,
+                                                 request_id=rid)))
+            got[i] = out["choices"][0]["token_ids"]
+
+        for i in range(len(prompts)):
+            threads.append(threading.Thread(target=consume, args=(i,)))
+            threads[-1].start()
+        deadline = time.monotonic() + 60
+        while True:
+            with src._lock:
+                lens = [len(r.output) for r in src.engine.running]
+            if len(lens) == len(prompts) and min(lens) >= 2:
+                break
+            assert time.monotonic() < deadline, lens
+            time.sleep(0.001)
+        res = src.migrate_sessions(dst.handoff_address())
+        for th in threads:
+            th.join(120)
+        src.resume_admission()
+        assert res["migrated"]
+        return [got[i] for i in range(len(prompts))]
+
+    one = LLMServer(cfg())
+    tp = LLMServer(cfg(tensor_parallel=2))
+    try:
+        ref = [ask(one, p, f"ref-{i}") for i, p in enumerate(prompts)]
+        ref_adopt = one.completions(dict(adopt))["choices"][0]["token_ids"]
+        assert migrate(one, tp, "into") == ref
+        assert migrate(tp, one, "outof") == ref
+        pre = PrefillServer(cfg())
+        try:
+            for i, p in enumerate(prompts):
+                res = prefill_with_retry(
+                    [LocalReplica(pre, name="prefill-0")],
+                    dict(prompt=p, max_tokens=24, request_id=f"h-{i}"),
+                    tp.handoff_address())
+                assert res["handoff"]
+                assert tp.completions_collect(res["rid"])["choices"][0][
+                    "token_ids"] == ref[i]
+        finally:
+            pre.close()
+        owner = LLMServer(cfg(num_kv_blocks=24, host_prefix_mb=0))
+        try:
+            owner.engine.attach_prefix_store(
+                host_tier=HostPrefixTier(1 << 16, low_watermark=0.2),
+                cluster_store=ClusterPrefixStore(16, transport=bridge))
+            owner.completions(dict(adopt))
+            for s in range(4):
+                owner.completions(dict(prompt=[(13 * i + s) % 97
+                                               for i in range(200)],
+                                       max_tokens=1))
+        finally:
+            owner.close()
+        assert ClusterPrefixStore(16, transport=bridge).lookup_owner(
+            cluster_chain(system, 16))["n_blocks"] == 6
+        tp.engine.attach_prefix_store(
+            cluster_store=ClusterPrefixStore(16, transport=bridge))
+        before = tp.engine_stats()
+        got = tp.completions(dict(adopt))["choices"][0]["token_ids"]
+        after = tp.engine_stats()
+        assert got == ref_adopt
+        assert after["cluster_prefix_adopted_blocks"] == 6
+        assert (after["prefill_tokens_computed"]
+                - before["prefill_tokens_computed"]) == 3
+    finally:
+        tp.close()
+        one.close()

@@ -205,11 +205,12 @@ def test_sampling_frequencies_match_filtered_softmax():
 
 
 def test_engine_refuses_unported_features(weights):
-    """What stays refused: the cluster prefix tier. The split path,
-    multi-step decode, speculation (unified and split), repetition
-    penalty, LoRA, weight updates and prefill-only engines run; the
-    disaggregated wire's parity tests are tests/test_torch_disagg.py and
-    tests/test_torch_migration.py."""
+    """Nothing of the engine stays refused: the split path, multi-step
+    decode, speculation (unified and split), repetition penalty, LoRA,
+    weight updates and prefill-only engines run; the disaggregated wire's
+    parity tests are tests/test_torch_disagg.py and
+    tests/test_torch_migration.py, the cluster prefix tier's
+    tests/test_torch_prefix_store.py."""
     from ray_tpu_torch.llm.serving import LLMConfig, LLMServer
 
     _, _, tconfig, tparams = weights
@@ -221,8 +222,6 @@ def test_engine_refuses_unported_features(weights):
                {"prefill_only": True}):
         _port_engine(tconfig, tparams, **kw)
     eng = _port_engine(tconfig, tparams)
-    with pytest.raises(ValueError, match="not ported"):
-        eng.attach_prefix_store(cluster_store=object())
     # LoRA and weight updates are ported: an engine without adapters
     # says so, and an idle engine takes its own weights back.
     with pytest.raises(ValueError, match="no LoRA manager"):

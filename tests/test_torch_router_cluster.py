@@ -100,12 +100,14 @@ def affinity_app(cluster):
     """The affinity app on both fake cards; the tests after its users
     delete it first (a module fixture outlives its last user)."""
     from ray_tpu_torch.llm import build_openai_app
+    from ray_tpu_torch.serve import api as serve_api
 
     handle = build_openai_app(_config(routing="affinity", num_replicas=2))
     host, port = serve.start_http_proxy()
     yield handle, f"http://{host}:{port}/v1-completions"
-    for name in AFFINITY_APP:
-        serve.delete(name)
+    if serve_api._controller is not None:   # else serve.shutdown ran
+        for name in AFFINITY_APP:
+            serve.delete(name)
 
 
 def test_affinity_app_over_http_equals_in_process(affinity_app):

@@ -5,9 +5,11 @@ method routing, two replicas balanced, redeploy, status and delete, the
 HTTP proxy with its health route and 404, composition, the HTTP adapter
 and its misconfiguration, push propagation), plus SSE through the proxy
 (tests/test_serve_llm_breadth.py), autoscaling up and down
-(tests/test_serve_autoscaling.py), the refusal of the cluster prefix tier
-inside a replica, and a tiny fp32 build_openai_app deployment whose greedy
-tokens over HTTP equal the JAX package's in-process LLMServer's.
+(tests/test_serve_autoscaling.py), a deployment on the default cluster
+prefix store (it publishes to the GCS prefix table, a server in the test
+process adopts, serve.delete purges its rows), and a tiny fp32
+build_openai_app deployment whose greedy tokens over HTTP equal the JAX
+package's in-process LLMServer's.
 
 No JAX cluster is started here. Deployments are defined inside the tests,
 so replicas unpickle them by value and never import this module (nor jax).
@@ -332,17 +334,63 @@ def _tiny_config(path=None, **kw):
         warmup_buckets="off", num_gpus_per_replica=1, **kw)
 
 
-def test_cluster_prefix_store_refused_inside_a_replica(cluster):
-    """An LLMServer replica with cluster_prefix_store=True (the default)
-    refuses with the port's _unported error, which surfaces at deploy."""
-    import ray_tpu_torch as rt
-    from ray_tpu_torch.llm import build_llm_deployment
+def test_default_prefix_store_publishes_adopts_and_purges(cluster):
+    """A deployment with the default cluster_prefix_store=True deploys and
+    serves. Under filler traffic its replica's host tier demotes a hot
+    prompt's blocks into the GCS prefix table over the real call_raw path;
+    a server in the test process, with no host tier of its own,
+    adopts them (the replica's tokens, no prefill for the adopted blocks);
+    serve.delete drops the deployment's rows (the controller's
+    prefix_purge)."""
+    import dataclasses
 
-    with pytest.raises(rt.TaskError,
-                       match=r"(?s)cluster prefix store.*item 6\.3.*"
-                             "not ported"):
-        serve.run(build_llm_deployment(_tiny_config(), name="prefix-refused"))
-    assert "prefix-refused" not in _names()
+    from ray_tpu_torch.llm import build_llm_deployment
+    from ray_tpu_torch.llm.prefix_store import (ClusterPrefixStore,
+                                                cluster_chain)
+    from ray_tpu_torch.llm.serving import LLMServer
+
+    cfg = dataclasses.replace(_tiny_config(), num_kv_blocks=16,
+                              host_prefix_mb=0.02,
+                              host_prefix_low_watermark=0.2)
+    assert cfg.cluster_prefix_store
+    hot = [(5 * i + 3) % 128 for i in range(24)]
+    request = {"prompt": hot + [7, 9, 11], "max_tokens": 6}
+    store = ClusterPrefixStore(8)
+    chain = cluster_chain(hot, 8)
+    handle = serve.run(build_llm_deployment(cfg, name="prefix-pub"))
+    try:
+        ref = handle.remote(dict(request)).result(timeout=T)[
+            "choices"][0]["token_ids"]
+        for s in range(6):
+            filler = [(11 * i + 17 * s + 1) % 128 for i in range(40)]
+            handle.remote({"prompt": filler, "max_tokens": 2}).result(
+                timeout=T)
+        deadline = time.monotonic() + T
+        hit = None
+        while time.monotonic() < deadline:
+            hit = store.lookup_owner(chain)
+            if hit and hit["n_blocks"] == 3:
+                break
+            time.sleep(0.2)
+        assert hit and hit["n_blocks"] == 3, hit
+        assert hit["owner_replica"]
+        with LLMServer(dataclasses.replace(cfg, host_prefix_mb=0)) as srv:
+            assert srv.engine.cluster_store is not None
+            before = srv.engine_stats()
+            got = srv.completions(dict(request))["choices"][0]["token_ids"]
+            after = srv.engine_stats()
+        assert got == ref
+        assert after["cluster_prefix_hits"] == 3
+        assert after["cluster_prefix_adopted_blocks"] == 3
+        assert (after["prefill_tokens_computed"]
+                - before["prefill_tokens_computed"]) == 3
+    finally:
+        assert serve.delete("prefix-pub")
+    deadline = time.monotonic() + T
+    while time.monotonic() < deadline and store.lookup_owner(chain):
+        time.sleep(0.2)
+    assert store.lookup_owner(chain) is None
+    assert "prefix-pub" not in _names()
 
 
 def test_openai_app_tokens_over_http_equal_jax(cluster, cpu_jax, tmp_path):

@@ -309,6 +309,53 @@ def test_gather_pages_equal_jax_whole_pool(weights, world):
         eng.runner.close()
 
 
+def test_table_adoption_into_tp2_as_at_tp1(weights, world):
+    """A tp=1 engine's host tier publishes a system prompt's blocks into
+    a GCS prefix table; a tp=2 engine (the same model: one fingerprint at
+    any tp) adopts them, prefills the suffix alone and gives the tp=1
+    engine's greedy tokens."""
+    import asyncio
+
+    from ray_tpu_torch.llm import prefix_store
+    from ray_tpu_torch.runtime.gcs.server import GcsServer
+
+    srv = GcsServer()
+
+    def transport(method, m, payload=b""):
+        r = asyncio.run(getattr(srv, f"handle_{method}")(None, m, payload))
+        return r.m, r.payload
+
+    def greedy(engine, prompt):
+        return engine.generate([prompt], SamplingParams(
+            max_tokens=6, temperature=0.0))[0].output_token_ids
+
+    def prompt(seed, n):
+        return [(seed * 7 + 3 * i + seed) % 128 for i in range(n)]
+
+    owner = _port_engine(weights, None, num_blocks=16)
+    owner_store = prefix_store.ClusterPrefixStore(8, replica="owner",
+                                                  transport=transport)
+    owner.attach_prefix_store(
+        host_tier=prefix_store.HostPrefixTier(48 << 10, low_watermark=0.3),
+        cluster_store=owner_store)
+    request = prompt(1, 24) + prompt(2, 6)
+    ref = greedy(owner, request)
+    for s in range(3, 8):
+        greedy(owner, prompt(s, 40))
+    assert owner_store.published >= 3
+    eng = _port_engine(weights, world)
+    try:
+        eng.attach_prefix_store(cluster_store=prefix_store.ClusterPrefixStore(
+            8, replica="tp2", transport=transport))
+        assert eng.model_fingerprint == owner.model_fingerprint
+        before = eng.prefill_tokens_computed
+        assert greedy(eng, request) == ref
+        assert eng.cluster_prefix_hits == 3
+        assert eng.prefill_tokens_computed - before == len(request) - 24
+    finally:
+        eng.runner.close()
+
+
 def test_update_weights_and_checkpoint_loading_as_at_tp1(weights, worlds,
                                                          tmp_path):
     """update_weights at tp=2 (each leaf sent to both ranks, each copying
