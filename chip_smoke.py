@@ -14,6 +14,7 @@
     python3 chip_smoke.py --phases device,build,serve
     python3 chip_smoke.py --phases device,build,router
     python3 chip_smoke.py --phases device,build,prefix_store
+    python3 chip_smoke.py --phases device,build,collective   # (b) on 2+ cards
     python3 chip_smoke.py --phases device --turns parent,.,.,parent
     python3 chip_smoke.py --phases device --turns a,b,b,a --turn-legs server
 
@@ -290,6 +291,32 @@ Phases, in order; any failure raises and the exit code is non-zero:
                router sends a published prompt back to its owner through
                the table's hint; after the owner's kill the survivor
                adopts it.
+  collective the out-of-program collective plane and checkpoint
+               replication on a two-node port cluster of this host
+               (cluster_utils.Cluster: node A with the cards, node B CPU
+               only, ckpt_replicate on): (a) one card, data-parallel
+               training of the bench Llama at full width over a tcp
+               group, rank 0 this process and rank 1 a one-GPU actor,
+               each its half of a seeded 4 x 2048 batch through the
+               flash kernels, reduce_gradients and AdamW, 3 steps:
+               parameter and optimizer digests equal on both ranks every
+               step, step 1's gradients and parameters within
+               GRAD_TOLERANCE of one process's step over the whole
+               batch, the flash launches a step; step ms, gradient
+               bytes, the ring's GB/s and share of the step; (c) a rank
+               withheld from an allreduce, the driver's
+               abort_collective_group, the blocked rank's
+               CollectiveAbortError within 2 watchdog intervals + 0.5 s;
+               (d) both ranks save the train state at world 2 with
+               replication: two list_checkpoint_shards rows, each
+               replica homed on node B (locate_object), the state
+               restored from the replicas' bytes alone equal bit for
+               bit; replication and save GB/s. With 2+ cards (b): the
+               same training over the torch backend (NCCL) between 2
+               (4 where there are 4) one-GPU actors, its allreduce GB/s
+               beside a raw torch.distributed.all_reduce of the same
+               bytes in a parallel/launch.spawn world, step ms against
+               one card's, and the abort over NCCL.
   prefix_store (after pages) the cluster prefix store: the runtime up in
                this process, two in-process 8B servers on its GCS table;
                the owner's host tier publishes a 1024-token prompt's 64
@@ -343,7 +370,7 @@ import zlib
 ALL_PHASES = ("device", "build", "kernel", "server", "lora", "pages",
               "prefix_store", "disagg", "split", "identity", "train",
               "pipeline", "rlhf", "resnet", "mesh", "checkpoint", "tp",
-              "runtime", "serve", "router")
+              "runtime", "serve", "router", "collective")
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12,     # dense bf16 tensor-core rate
             "float32": 67e12}       # fp32 outside the tensor cores
@@ -5990,6 +6017,607 @@ def phase_router(torch):
     RESULTS["router"] = out
 
 
+# ------------------------------------------------------------- collective
+
+DDP_STEPS = 3
+DDP_BATCH = 4                 # sequences of 2048 tokens, split over ranks
+DDP_BUCKET_BYTES = 32 << 20   # reduce_gradients' buckets on the card
+_DIGEST_W: dict = {}
+
+
+def _digest(torch, tensors) -> str:
+    """A 128-bit digest of the tensors' bits, computed on their card: each
+    element's bit pattern (int16/int32/int64 view, as int64) weighted by
+    two seeded random int64 vectors, summed mod 2^64, chunk by chunk and
+    tensor by tensor. Two tensors lists of different bits give equal
+    digests with probability about 2^-64 per sum."""
+    chunk = 1 << 22
+    dev = tensors[0].device
+    w = _DIGEST_W.get(str(dev))
+    if w is None:
+        g = torch.Generator(device=dev).manual_seed(SEED + 99)
+        w = _DIGEST_W[str(dev)] = torch.randint(
+            -(1 << 62), 1 << 62, (2, chunk), generator=g, dtype=torch.int64,
+            device=dev)
+    views = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    acc = torch.zeros(2, dtype=torch.int64, device=dev)
+    for t in tensors:
+        bits = t.detach().reshape(-1).view(views[t.element_size()])
+        for off in range(0, bits.numel(), chunk):
+            part = bits[off:off + chunk].to(torch.int64)
+            acc = acc * 1000003 + (part[None, :] * w[:, :part.numel()]).sum(1)
+    return "".join(f"{x & (2**64 - 1):016x}" for x in acc.tolist())
+
+
+class DDPRank:
+    """One data-parallel rank of the bench Llama (the collective phase).
+    The driver holds rank 0 of leg (a) itself; the other ranks are
+    one-GPU actors of this class (pickled by reference: workers import
+    this file). Every rank builds the bench cell's state from SEED and the
+    seeded 4 x 2048 batch, and trains on its share of the batch."""
+
+    def __init__(self, world: int, rank: int, group: str, backend: str):
+        import torch
+
+        from ray_tpu_torch.train.optim import adamw
+        from ray_tpu_torch.train.step import init_state
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.torch = torch
+        self.world, self.rank, self.group = world, rank, group
+        self.backend = backend
+        self.config = _bench_train_config(torch)
+        self.opt = adamw(1e-4, b1=0.9, b2=0.95, mu_dtype=torch.bfloat16)
+        self.state = init_state(self.config, self.opt, torch.Generator(
+            device="cuda").manual_seed(SEED), device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+        self.batch = torch.randint(0, self.config.vocab_size,
+                                   (DDP_BATCH, self.config.max_seq + 1),
+                                   generator=gen, device="cuda")
+        per = DDP_BATCH // world
+        self.tokens = self.batch[rank * per:(rank + 1) * per]
+        self.comm = None
+        self.ref = None
+        self.plane = None
+
+    def info(self) -> dict:
+        torch = self.torch
+        return {"pid": os.getpid(), "device": torch.cuda.get_device_name(0),
+                "cuda_visible_devices": os.environ.get(
+                    "CUDA_VISIBLE_DEVICES"),
+                "device_count": torch.cuda.device_count()}
+
+    def join(self) -> bool:
+        from ray_tpu_torch import collective as col
+
+        self.comm = col.init_collective_group(self.world, self.rank,
+                                              self.backend, self.group)
+        return True
+
+    def _params(self):
+        from ray_tpu_torch.train.optim import leaves
+
+        return [p for _, p in leaves(self.state["params"])]
+
+    def _grads(self, params, tokens):
+        from ray_tpu_torch.models import llama
+
+        loss, _ = llama.loss_fn(self.state["params"], {"tokens": tokens},
+                                self.config)
+        return loss, self.torch.autograd.grad(loss, params)
+
+    def reference(self) -> dict:
+        """One process's step over the whole batch from the same weights
+        (a state of its own): its gradients and its parameters after the
+        step, kept for step 1's check; then the ms of a second such step,
+        the one-card step the data-parallel steps stand beside."""
+        from ray_tpu_torch.models import llama
+        from ray_tpu_torch.train.optim import leaves
+        from ray_tpu_torch.train.step import init_state, make_step
+
+        torch = self.torch
+        state = init_state(self.config, self.opt, torch.Generator(
+            device="cuda").manual_seed(SEED), device="cuda")
+        params = [p for _, p in leaves(state["params"])]
+        loss, grads = llama.loss_fn(state["params"], {"tokens": self.batch},
+                                    self.config)
+        grads = torch.autograd.grad(loss, params)
+        self.opt.update(state["params"], grads, state["opt"])
+        self.ref = {"grads": [g.detach() for g in grads],
+                    "params": [p.detach().clone() for p in params],
+                    "loss": loss.item()}
+        step = make_step(self.config, self.opt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, self.batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        del state, params, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {"loss": self.ref["loss"], "step_ms": ms}
+
+    def _vs_reference(self, grads) -> dict:
+        """Step 1 against one process's whole-batch step: each gradient
+        leaf by norm, ||got - ref|| / ||ref||, and each parameter leaf by
+        its largest difference over the leaf's largest value."""
+        torch = self.torch
+        g_err = max(((a.float() - b.float()).norm()
+                     / b.float().norm().clamp(min=1e-30)).item()
+                    for a, b in zip(grads, self.ref["grads"]))
+        p_err = max(((a.float() - b.float()).abs().max()
+                     / b.float().abs().max().clamp(min=1e-30)).item()
+                    for a, b in zip(self._params(), self.ref["params"]))
+        self.ref = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {"grad_rel_norm_err": g_err, "param_rel_err": p_err}
+
+    def steps(self, n: int) -> dict:
+        """n data-parallel steps: loss and gradients of this rank's share
+        (flash K1-K4), reduce_gradients over the group (mean), the
+        port's AdamW in place. The flash counts start at 0 here; per step
+        its launches, ms by part and the digests of the parameters and of
+        the whole train state."""
+        from ray_tpu_torch.ops import attention as attn
+        from ray_tpu_torch.train.backend import reduce_gradients
+
+        torch = self.torch
+        for k in FLASH_KERNELS:
+            getattr(attn, k).launches = 0
+        params = self._params()
+        records = []
+        for i in range(n):
+            before = _flash_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, grads = self._grads(params, self.tokens)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            reduced = reduce_gradients(self.comm, list(grads),
+                                       bucket_bytes=DDP_BUCKET_BYTES)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            self.opt.update(self.state["params"], reduced,
+                            self.state["opt"])
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            rec = {"loss": loss.item(), "step_ms": (t3 - t0) * 1e3,
+                   "grad_ms": (t1 - t0) * 1e3, "reduce_ms": (t2 - t1) * 1e3,
+                   "opt_ms": (t3 - t2) * 1e3,
+                   "grad_bytes": sum(g.numel() * g.element_size()
+                                     for g in grads),
+                   "flash": {k: v - before[k]
+                             for k, v in _flash_counts().items()},
+                   "params_digest": _digest(torch, params),
+                   "state_digest": _digest(torch, params
+                                           + self.state["opt"]["mu"]
+                                           + self.state["opt"]["nu"])}
+            if i == 0 and self.ref is not None:
+                rec.update(self._vs_reference(reduced))
+            del grads, reduced
+            records.append(rec)
+        return {"records": records, "launches": _flash_counts()}
+
+    def allreduce_ms(self, nbytes: int, iters: int = 3) -> float:
+        """ms of one allreduce (sum) of `nbytes` of bf16 on this group, a
+        single op (no buckets), after a warm one."""
+        torch = self.torch
+        buf = torch.ones(nbytes // 2, dtype=torch.bfloat16, device="cuda")
+        self.comm.allreduce(buf)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            self.comm.allreduce(buf)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / iters * 1e3
+
+    def blocked_allreduce(self):
+        """An allreduce that another rank never joins: (time.time() when
+        CollectiveAbortError came, its message)."""
+        from ray_tpu_torch.core.exceptions import CollectiveAbortError
+
+        try:
+            self.comm.allreduce(self.torch.ones(1024, device="cuda"))
+        except CollectiveAbortError as e:
+            return time.time(), str(e)
+        return None, "the allreduce returned"
+
+    def leave(self) -> None:
+        from ray_tpu_torch import collective as col
+
+        col.destroy_collective_group(self.group)
+        self.comm = None
+
+    def save(self, directory: str, step: int) -> dict:
+        """This rank's shard of the train state through a CheckpointPlane
+        (replication from cfg().ckpt_replicate), waited for; the handle's
+        info and replica, and the replica's ref (in a list, so it
+        travels as a ref)."""
+        from ray_tpu_torch.checkpoint import CheckpointPlane
+
+        self.plane = CheckpointPlane()
+        t0 = time.perf_counter()
+        p = self.plane.save_async(self.state, directory, rank=self.rank,
+                                  world=self.world, step=step)
+        if not p.wait(600) or not p.ok:
+            raise AssertionError(f"rank {self.rank} save: {p.info()}")
+        refs = list(self.plane._replica_refs)
+        return {"info": p.info(), "replica": p.replica,
+                "wall_ms": (time.perf_counter() - t0) * 1e3,
+                "refs": refs[-1:]}
+
+
+def _raw_allreduce(rank, world, nbytes, iters):
+    """A parallel/launch.spawn rank: ms of torch.distributed.all_reduce of
+    `nbytes` of bf16 on the world's NCCL group (the library yardstick)."""
+    import torch
+    import torch.distributed as dist
+
+    buf = torch.ones(nbytes // 2, dtype=torch.bfloat16, device="cuda")
+    for _ in range(2):
+        dist.all_reduce(buf)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        dist.all_reduce(buf)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def _all(ranks, method, *args, timeout=900):
+    """`method(*args)` on every rank at once: actors' calls launched
+    first, the driver's own rank (a DDPRank) run here; results in rank
+    order."""
+    import ray_tpu_torch as rt
+
+    refs = [(i, getattr(r, method).remote(*args)) for i, r in
+            enumerate(ranks) if not isinstance(r, DDPRank)]
+    local = {i: getattr(r, method)(*args) for i, r in enumerate(ranks)
+             if isinstance(r, DDPRank)}
+    got = dict(zip([i for i, _ in refs],
+                   rt.get([ref for _, ref in refs], timeout=timeout)))
+    return [local[i] if i in local else got[i] for i in range(len(ranks))]
+
+
+def _ddp_leg(torch, rt, ranks, label, ref_step, config):
+    """3 steps on `ranks`; the checks and numbers of a data-parallel leg."""
+    L = config.n_layers
+    per_step = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    t0 = time.perf_counter()
+    runs = _all(ranks, "steps", DDP_STEPS)
+    wall = time.perf_counter() - t0
+    for i in range(DDP_STEPS):
+        digests = {(r["records"][i]["params_digest"],
+                    r["records"][i]["state_digest"]) for r in runs}
+        if len(digests) != 1:
+            raise AssertionError(f"{label} step {i + 1}: ranks' digests "
+                                 f"differ: {digests}")
+    first = runs[0]["records"][0]
+    tol = GRAD_TOLERANCE["bfloat16"]
+    if not (first["grad_rel_norm_err"] <= tol
+            and first["param_rel_err"] <= tol):
+        raise AssertionError(f"{label} step 1 vs one process's whole-batch "
+                             f"step: {first} (tolerance {tol})")
+    for r, run in enumerate(runs):
+        for i, rec in enumerate(run["records"]):
+            if rec["flash"] != per_step or not math.isfinite(rec["loss"]):
+                raise AssertionError(f"{label} rank {r} step {i + 1}: {rec}")
+    out = {"world": len(ranks), "wall_s": wall,
+           "vs_reference": {k: first[k] for k in (
+               "grad_rel_norm_err", "param_rel_err")},
+           "one_card_step_ms": ref_step["step_ms"],
+           "ranks": [], "launches": [run["launches"] for run in runs]}
+    for r, run in enumerate(runs):
+        recs = run["records"]
+        timed = recs[1:]          # step 1 builds buckets and links
+        step_ms = sum(x["step_ms"] for x in timed) / len(timed)
+        reduce_ms = sum(x["reduce_ms"] for x in timed) / len(timed)
+        gbytes = recs[0]["grad_bytes"]
+        out["ranks"].append({
+            "step_ms": [x["step_ms"] for x in recs],
+            "grad_ms": [x["grad_ms"] for x in recs],
+            "reduce_ms": [x["reduce_ms"] for x in recs],
+            "opt_ms": [x["opt_ms"] for x in recs],
+            "loss": [x["loss"] for x in recs], "grad_bytes": gbytes,
+            "reduce_gb_s": gbytes / reduce_ms / 1e6,
+            "reduce_share": reduce_ms / step_ms,
+            "flash_per_step": recs[-1]["flash"]})
+        log(f"collective {label} rank {r}: steps "
+            + ", ".join(f"{x['step_ms']:.1f}" for x in recs)
+            + " ms (grad, reduce, AdamW: " + "; ".join(
+                f"{x['grad_ms']:.1f}, {x['reduce_ms']:.1f}, "
+                f"{x['opt_ms']:.1f}" for x in recs) + "); "
+            f"{gbytes / 1e9:.3f} GB of bf16 gradients a step at "
+            f"{gbytes / reduce_ms / 1e6:.2f} GB/s (steps 2-{DDP_STEPS}), "
+            f"{reduce_ms / step_ms:.1%} of the step; flash launches a step "
+            f"{recs[-1]['flash']}; losses "
+            + ", ".join(f"{x['loss']:.4f}" for x in recs))
+    log(f"collective {label}: {len(ranks)} ranks' parameter and AdamW "
+        f"digests equal after each of {DDP_STEPS} steps; step 1 vs one "
+        f"process's whole-batch step: gradients {first['grad_rel_norm_err']:.2e}"
+        f" by norm, parameters {first['param_rel_err']:.2e} of each leaf's "
+        f"max (tolerance {tol}); one card's whole-batch step "
+        f"{ref_step['step_ms']:.1f} ms; {RESULTS.get('nvidia_smi')}")
+    return out
+
+
+def _abort_leg(rt, blocked_rank, group, label, member=False):
+    """A rank blocked in an allreduce that another never joins, then
+    abort_collective_group from this process (a member of the group, or
+    not): seconds from the call to the blocked rank's
+    CollectiveAbortError, against 2 watchdog intervals + 0.5 s."""
+    from ray_tpu_torch import collective as col
+    from ray_tpu_torch.config import cfg
+
+    waiting = blocked_rank.blocked_allreduce.remote()
+    ready, _ = rt.wait([waiting], num_returns=1, timeout=2.0)
+    if ready:
+        raise AssertionError(f"{label}: the allreduce returned with a rank "
+                             f"withheld: {rt.get(waiting)}")
+    t_abort = time.time()
+    col.abort_collective_group(group, f"{label}: the driver aborts")
+    t_raised, msg = rt.get(waiting, timeout=60)
+    bound = 2 * cfg().collective_watchdog_interval_s + 0.5
+    if t_raised is None or t_raised - t_abort > bound:
+        raise AssertionError(f"{label}: {msg} after {t_raised} (abort at "
+                             f"{t_abort}, bound {bound} s)")
+    log(f"collective {label}: the blocked rank raised CollectiveAbortError "
+        f"{t_raised - t_abort:.3f} s after abort_collective_group (bound "
+        f"{bound:.1f} s): {msg}")
+    return {"abort_to_raise_s": t_raised - t_abort, "bound_s": bound,
+            "member": member}
+
+
+def _replication_leg(torch, rt, ranks, directory, core, node_b):
+    """(d) both ranks save the train state at world 2 with replication;
+    rows, homes, a restore from the replicas' bytes alone."""
+    from ray_tpu_torch.checkpoint import manifest as tman
+
+    t0 = time.perf_counter()
+    saves = _all(ranks, "save", directory, DDP_STEPS, timeout=900)
+    wall = (time.perf_counter() - t0) * 1e3
+    rows = core.io.run(core.gcs.call("list_checkpoint_shards",
+                                     path=os.path.abspath(directory)),
+                       timeout=60)
+    if [r["shard"] for r in rows] != [0, 1]:
+        raise AssertionError(f"replication rows: {rows}")
+    if not saves[0]["info"]["committed"]:
+        raise AssertionError(f"rank 0's save not committed: {saves[0]}")
+    out = {"rows": [], "save_wall_ms": wall}
+    for row, sv in zip(rows, saves):
+        rep = sv["replica"]
+        if rep is None or row["oids"] != [rep["oid"]]:
+            raise AssertionError(f"rank {row['shard']}: replica {rep} vs "
+                                 f"row {row}")
+        loc = core.io.run(core.gcs.call("locate_object", oid=bytes.fromhex(
+            rep["oid"])), timeout=60)
+        if not loc["found"] or loc["node_id"] != node_b:
+            raise AssertionError(f"replica of shard {row['shard']} homed "
+                                 f"at {loc}, not node B")
+        npz = os.path.join(directory, tman.shard_npz("state", row["shard"],
+                                                     2))
+        info = sv["info"]
+        # The persist includes the replication (it runs before the
+        # commit): the plane's own write is the rest.
+        write_ms = info["persist_ms"] - rep["ms"]
+        out["rows"].append({
+            "shard": row["shard"], "nbytes": row["nbytes"],
+            "replica_ms": rep["ms"], "replica_parts_ms": rep["parts_ms"],
+            "persist_ms": info["persist_ms"], "write_ms": write_ms,
+            "replica_gb_s": rep["bytes"] / rep["ms"] / 1e6,
+            "save_gb_s": os.path.getsize(npz) / write_ms / 1e6,
+            "nodes_covered": rep["nodes"]})
+    # The shard files go; the replicas' bytes come back through the
+    # object plane and are written where the shards were.
+    refs = [sv["refs"][0] for sv in saves]
+    t0 = time.perf_counter()
+    for row in rows:
+        os.remove(os.path.join(directory,
+                               tman.shard_npz("state", row["shard"], 2)))
+    for row, ref in zip(rows, refs):
+        data = rt.get(ref, timeout=300)
+        with open(os.path.join(directory, tman.shard_npz(
+                "state", row["shard"], 2)), "wb") as f:
+            f.write(memoryview(data))
+    restored = _restored_state(torch, directory)
+    torch.cuda.synchronize()
+    out["restore_from_replicas_ms"] = (time.perf_counter() - t0) * 1e3
+    from ray_tpu_torch.train.optim import leaves
+
+    def tensors(state):
+        return leaves({"params": state["params"], "mu": state["opt"]["mu"],
+                       "nu": state["opt"]["nu"]})
+
+    saved = ranks[0].state
+    want = tensors(saved)
+    got = dict(tensors(restored))
+    for path, t in want:
+        g = got[path]
+        if not (g.dtype == t.dtype and torch.equal(
+                g.reshape(-1).view(torch.uint8),
+                t.detach().reshape(-1).view(torch.uint8))):
+            raise AssertionError(f"restored {path} differs from the saved "
+                                 "state")
+    if restored["opt"]["count"] != saved["opt"]["count"]:
+        raise AssertionError(f"restored count {restored['opt']['count']}")
+    out["restored_bit_equal"] = True
+    del restored
+    for r in out["rows"]:
+        log(f"collective (d) shard {r['shard']}: {r['nbytes'] / 1e9:.3f} GB "
+            f"replicated to {r['nodes_covered']} node(s) in "
+            f"{r['replica_ms']:.0f} ms ({r['replica_gb_s']:.3f} GB/s; ms "
+            + ", ".join(f"{k} {v:.0f}" for k, v in
+                        r["replica_parts_ms"].items())
+            + f") beside the plane's own write {r['write_ms']:.0f} ms "
+            f"({r['save_gb_s']:.3f} GB/s); row registered, replica homed "
+            "on node B")
+    log(f"collective (d): with both shard files deleted, the train state "
+        f"restored from the replicas' bytes in "
+        f"{out['restore_from_replicas_ms']:.0f} ms equals the saved state "
+        f"bit for bit ({len(want)} leaves); {RESULTS.get('nvidia_smi')}")
+    return out
+
+
+def phase_collective(torch):
+    """The collective group and checkpoint replication on the card
+    (ROADMAP queue 1 item 7d): see the module docstring, phase
+    `collective`."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.cluster_utils import Cluster, session_pids
+    from ray_tpu_torch.core import worker as worker_mod
+    from ray_tpu_torch.parallel.launch import spawn
+
+    import chip_smoke as this   # actor bodies pickled by reference
+
+    _SHARED.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    config = _bench_train_config(torch)
+    out: dict = {"cards": n_cards}
+    # A 2.8 GB shard's relay took 30-35 s on H100 hosts: past half the
+    # default 60 s bound (a replication that times out fails silently).
+    settings = {"ckpt_replicate": True, "ckpt_replicate_timeout_s": 300.0}
+    # The train state is params + AdamW mu and nu in bf16; each rank's
+    # shard is half of it, and both shards' replicas sit in node A's store
+    # (their puts) and in node B's (the relay).
+    state_bytes = 3 * 2 * _n_params(config)
+    # Below the raylets' spill watermark (0.85 full) with both shards in.
+    store = int(state_bytes * 1.4) + (256 << 20)
+    shm = os.statvfs("/dev/shm")
+    shm_free = shm.f_bavail * shm.f_frsize
+    log(f"collective: train state {state_bytes / 1e9:.3f} GB; two stores "
+        f"of {store / 2**30:.2f} GiB in /dev/shm ({shm_free / 2**30:.1f} "
+        "GiB free)")
+    if shm_free < 2 * store + (2 << 30):
+        raise AssertionError("/dev/shm cannot hold two stores of the train "
+                             "state")
+    cluster = Cluster(system_config=settings)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_collective_")
+    ranks = []
+    try:
+        node_a = cluster.add_node(num_cpus=8, num_gpus=n_cards,
+                                  object_store_memory=store)
+        node_b = cluster.add_node(num_cpus=1, object_store_memory=store)
+        rt.init(address=cluster.address, _system_config=settings)
+        cluster.wait_for_nodes(2, timeout=60)
+        core = worker_mod.global_worker()
+        if core.node_id != node_a.node_id:
+            raise AssertionError("the driver is not on node A")
+        Rank = rt.remote(this.DDPRank)
+
+        # (a) one card: this process is rank 0, a one-GPU actor rank 1.
+        t0 = time.perf_counter()
+        actor = Rank.options(num_gpus=1, num_cpus=1).remote(
+            2, 1, "ddp-tcp", "tcp")
+        local = DDPRank(2, 0, "ddp-tcp", "tcp")
+        ranks = [local, actor]
+        info = rt.get(actor.info.remote(), timeout=600)
+        out["actor_up_s"] = time.perf_counter() - t0
+        log(f"collective (a): rank 1 up in {out['actor_up_s']:.1f} s on "
+            f"{info['device']} (CUDA_VISIBLE_DEVICES="
+            f"{info['cuda_visible_devices']})")
+        _all(ranks, "join")
+        ref_step = local.reference()
+        out["tcp"] = _ddp_leg(torch, rt, ranks, "(a) tcp", ref_step, config)
+        # (c) the tcp group: rank 1 blocked, this process aborts it.
+        out["abort_tcp"] = _abort_leg(rt, actor, "ddp-tcp", "(c) tcp",
+                                      member=True)
+        _all(ranks, "leave")
+        # (d) replication of both ranks' shards.
+        out["replication"] = _replication_leg(
+            torch, rt, ranks, os.path.join(tmp, "ckpt"), core,
+            node_b.node_id)
+        rt.kill(actor)
+        ranks = []
+        del local
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) 2+ cards: the torch backend (NCCL) between one-GPU actors.
+        if n_cards >= 2:
+            world = 4 if n_cards >= 4 else 2
+            t0 = time.perf_counter()
+            ranks = [Rank.options(num_gpus=1, num_cpus=1).remote(
+                world, r, "ddp-nccl", "torch") for r in range(world)]
+            infos = _all(ranks, "info")
+            out["nccl_actors_up_s"] = time.perf_counter() - t0
+            if len({i["cuda_visible_devices"] for i in infos}) != world:
+                raise AssertionError(f"ranks share a card: {infos}")
+            _all(ranks, "join")
+            ref_step = rt.get(ranks[0].reference.remote(), timeout=900)
+            leg = _ddp_leg(torch, rt, ranks, f"(b) nccl x{world}", ref_step,
+                           config)
+            nbytes = leg["ranks"][0]["grad_bytes"]
+            backend_ms = _all(ranks, "allreduce_ms", nbytes)
+            raw_ms = spawn(this._raw_allreduce, world, nbytes, 3,
+                           device="cuda", timeout=600)
+            bus = 2 * (world - 1) / world
+            leg["allreduce"] = {
+                "bytes": nbytes, "backend_ms": backend_ms, "raw_ms": raw_ms,
+                "backend_gb_s": nbytes / max(backend_ms) / 1e6,
+                "raw_gb_s": nbytes / max(raw_ms) / 1e6,
+                "backend_bus_gb_s": bus * nbytes / max(backend_ms) / 1e6,
+                "raw_bus_gb_s": bus * nbytes / max(raw_ms) / 1e6}
+            a = leg["allreduce"]
+            log(f"collective (b) nccl x{world}: one allreduce of "
+                f"{nbytes / 1e9:.3f} GB bf16 {max(backend_ms):.2f} ms "
+                f"through the torch backend ({a['backend_gb_s']:.1f} GB/s, "
+                f"bus {a['backend_bus_gb_s']:.1f}) beside "
+                f"torch.distributed.all_reduce in a spawn world "
+                f"{max(raw_ms):.2f} ms ({a['raw_gb_s']:.1f} GB/s, bus "
+                f"{a['raw_bus_gb_s']:.1f}); data-parallel step "
+                f"{sum(leg['ranks'][0]['step_ms'][1:]) / (DDP_STEPS - 1):.1f}"
+                f" ms against one card's whole-batch step "
+                f"{ref_step['step_ms']:.1f} ms; {RESULTS.get('nvidia_smi')}")
+            out["nccl"] = leg
+            out["abort_nccl"] = _abort_leg(rt, ranks[1], "ddp-nccl",
+                                           "(c) nccl")
+            for r in ranks:
+                rt.kill(r)
+            ranks = []
+        else:
+            log(f"collective (b): {n_cards} card(s) on this machine; the "
+                "NCCL leg needs 2 or more and did not run")
+    finally:
+        for r in ranks:
+            if not isinstance(r, DDPRank):
+                try:
+                    rt.kill(r)
+                except Exception:
+                    pass
+        try:
+            rt.shutdown()
+        finally:
+            cluster.shutdown()
+            shutil.rmtree(tmp, ignore_errors=True)
+    left = session_pids(cluster.session_dir)
+    stores = [n for n in (node_a.store_path, node_b.store_path)
+              if os.path.exists(n)]
+    if left or stores:
+        raise AssertionError(f"collective: processes {left}, stores "
+                             f"{stores} left after shutdown")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"collective: phase wall {out['wall_s']:.1f} s; no process of the "
+        f"session and no store file left; {RESULTS.get('nvidia_smi')}")
+    RESULTS["collective"] = out
+
+
+def _n_params(config) -> int:
+    """Parameters of a Llama config, as llama.init_params lays them out."""
+    from ray_tpu_torch.models import llama
+
+    d, v, L = config.d_model, config.vocab_size, config.n_layers
+    return 2 * v * d + d + L * sum(
+        math.prod(shape) for shape, _ in llama.layer_shapes(config).values())
+
+
 def kernels_line() -> dict:
     """The machine-readable kernel summary, one entry per kernel: headline
     numbers from its bf16 case at the main path's own shape (K5: the
@@ -6014,7 +6642,9 @@ def kernels_line() -> dict:
     (`launches_router_disagg_engine`, K5) and the prefill replica
     (`launches_router_prefill`, K6), `launches_prefix_survivor` (K5) the
     prefix_store phase's 8B survivor serving the adopted prompt, counted
-    from 0, `launches_rlhf_update` (flash) one learner update. `ms` is eager, host
+    from 0, `launches_rlhf_update` (flash) one learner update,
+    `launches_collective` (flash) each rank's launches in one
+    data-parallel step of the collective phase, over tcp and NCCL. `ms` is eager, host
     included; `graph_ms` (K5/K6) the device time alone. `cuda_kernel` names the
     `__global__` functions the bf16 case launches, as profiles show them."""
     rows = RESULTS.get("kernel_cases", [])
@@ -6028,6 +6658,7 @@ def kernels_line() -> dict:
     tiers = RESULTS.get("disagg", {}).get("launches")
     pipe = RESULTS.get("pipeline", {}).get("bench", {})
     rlhf = RESULTS.get("rlhf", {}).get("loop", {}).get("iterations", [])
+    coll = RESULTS.get("collective", {})
 
     def flash_paths(kernel):
         return {"launches_pipeline": {
@@ -6035,7 +6666,10 @@ def kernels_line() -> dict:
             ("plain", "interleaved") if "launches_per_step" in pipe.get(
                 v, {})} or None,
             "launches_rlhf_update": (rlhf[0]["flash_per_update"][kernel]
-                                     if rlhf else None)}
+                                     if rlhf else None),
+            "launches_collective": {
+                leg: [r["flash_per_step"][kernel] for r in coll[leg]["ranks"]]
+                for leg in ("tcp", "nccl") if leg in coll} or None}
 
     def entry(kernel, name, cuda_kernel, source, replaces, head_case,
               launches, launches_tp=None, col=None, **paths):

@@ -6,22 +6,28 @@ background (port of ray_tpu/checkpoint/plane.py).
 thread, which
 
   1. writes this rank's shard npz + leaf table (tmp + fsync + rename),
-  2. tries the atomic manifest commit (manifest.py: whichever rank lands
+  2. with replication on, replicates the completed shard to the peer
+     nodes' object stores through the `util/broadcast.py` fanout tree and
+     registers the replica object in the GCS drain relocation table, so
+     a draining node's shards are already elsewhere when its deadline
+     kill lands (a failed replication never fails the save),
+  3. tries the atomic manifest commit (manifest.py: whichever rank lands
      last commits; a crash anywhere leaves the previous checkpoint valid).
 
 Rank 0's handle also waits (bounded, by cheap stat polls) for the commit
 when another rank lands it, so exactly one rank can report "checkpoint
 real" without any cross-rank message.
 
-The JAX package's `ray_tpu.config` knobs are keyword arguments here with
-the same defaults (`fsync=True`, `commit_wait_s=60`). Peer replication of
-the shard and its registration in the GCS drain table need the actor
-runtime: asking for them (`replicate=True`) raises; they are never
-skipped silently.
+The JAX package's `ray_tpu.config` knobs `ckpt_fsync` and
+`ckpt_commit_wait_s` are keyword arguments here with the same defaults
+(`fsync=True`, `commit_wait_s=60`); `replicate` defaults to the port's
+`cfg().ckpt_replicate` (read at each persist, as JAX reads it), and
+`cfg().ckpt_replicate_timeout_s` bounds a shard's fanout.
 """
 
 from __future__ import annotations
 
+import collections
 import logging
 import os
 import queue
@@ -34,14 +40,6 @@ from ray_tpu_torch.checkpoint import snapshot as snapshot_mod
 from ray_tpu_torch.checkpoint.manifest import CheckpointError
 
 logger = logging.getLogger(__name__)
-
-
-def _refuse_replication() -> ValueError:
-    from ray_tpu_torch.core.exceptions import _unported
-
-    return _unported("checkpoint shard replication to peers and its GCS "
-                     "registration (they need the actor runtime, ROADMAP "
-                     "queue 1 item 6)")
 
 
 class PendingSave:
@@ -59,6 +57,9 @@ class PendingSave:
         self.snapshot_ms = snapshot_ms
         self.nbytes = nbytes
         self.persist_ms = 0.0
+        # {"nodes", "ms", "bytes", "oid", "parts_ms"} of this shard's
+        # replication, or None (replication off, or it failed).
+        self.replica: Optional[dict] = None
         self.committed = False
         self.error: Optional[BaseException] = None
         self.done = threading.Event()
@@ -84,11 +85,16 @@ class CheckpointPlane:
     makes."""
 
     def __init__(self, *, reuse_buffers: bool = True, fsync: bool = True,
-                 commit_wait_s: float = 60.0, replicate: bool = False):
-        if replicate:
-            raise _refuse_replication()
+                 commit_wait_s: float = 60.0,
+                 replicate: Optional[bool] = None):
         self.fsync = fsync
         self.commit_wait_s = commit_wait_s
+        self.replicate = replicate
+        # Replica shard objects stay referenced here so the object plane
+        # keeps them alive across the drain window (bounded: old
+        # checkpoints age out of the deque and become collectable).
+        self._replica_refs: "collections.deque" = collections.deque(
+            maxlen=32)
         self._pool = snapshot_mod.BufferPool() if reuse_buffers else None
         self._queue: "queue.Queue" = queue.Queue()
         self._pending: List[PendingSave] = []
@@ -186,6 +192,8 @@ class CheckpointPlane:
             manifest_mod.write_shard(
                 pending.directory, pending.name, pending.rank, pending.world,
                 snap.records, snap.leaves, fsync=self.fsync)
+            if self._replicating():
+                self._replicate_shard(pending)
             pending.committed = manifest_mod.try_commit(
                 pending.directory, pending.name, pending.world,
                 step=pending.step, fsync=self.fsync) is not None
@@ -229,6 +237,60 @@ class CheckpointPlane:
             except Exception:
                 logger.warning("checkpoint on_done callback failed",
                                exc_info=True)
+
+    def _replicating(self) -> bool:
+        if self.replicate is not None:
+            return self.replicate
+        from ray_tpu_torch.config import cfg
+
+        return cfg().ckpt_replicate
+
+    def _replicate_shard(self, pending: PendingSave) -> int:
+        """Fan the durable shard bytes out to peer object stores and
+        register the replica in the GCS drain relocation table.
+        Best-effort: a failed replication never fails the save."""
+        try:
+            import numpy as np
+
+            from ray_tpu_torch.config import cfg
+            from ray_tpu_torch.core import api
+            from ray_tpu_torch.core import worker as worker_mod
+            from ray_tpu_torch.util.broadcast import broadcast_object
+
+            if not api.is_initialized():
+                return 0
+            t = [time.perf_counter()]
+            path = os.path.join(
+                pending.directory,
+                manifest_mod.shard_npz(pending.name, pending.rank,
+                                       pending.world))
+            data = np.fromfile(path, dtype=np.uint8)
+            t.append(time.perf_counter())
+            ref = api.put(data)
+            t.append(time.perf_counter())
+            covered = broadcast_object(
+                ref, timeout=cfg().ckpt_replicate_timeout_s)
+            t.append(time.perf_counter())
+            core = worker_mod.global_worker()
+            core.io.run(core.gcs.call(
+                "register_checkpoint_shards",
+                path=pending.directory, name=pending.name,
+                shard=pending.rank, world=pending.world, step=pending.step,
+                nbytes=int(data.nbytes), oids=[ref.binary()],
+                node_id=core.node_id), timeout=10)
+            t.append(time.perf_counter())
+            self._replica_refs.append(ref)
+            parts = [(b - a) * 1e3 for a, b in zip(t, t[1:])]
+            pending.replica = {
+                "nodes": covered, "bytes": int(data.nbytes),
+                "ms": (t[-1] - t[0]) * 1e3, "oid": ref.binary().hex(),
+                "parts_ms": dict(zip(("read", "put", "relay", "register"),
+                                     parts))}
+            return covered
+        except Exception:
+            logger.warning("checkpoint shard replication failed for %s",
+                           pending.directory, exc_info=True)
+            return 0
 
 
 def save_sharded(tree: Any, directory: str, *, name: str = "state",

@@ -1,7 +1,7 @@
 """Central runtime config table: typed tunables, env-overridable.
 
-The port's copy of ray_tpu/config.py, cut to the runtime's and Serve's
-entries, with
+The port's copy of ray_tpu/config.py, cut to the runtime's, Serve's,
+the collective plane's and checkpoint replication's entries, with
 the environment prefix RAY_TPU_TORCH_ (so the JAX package's own settings
 never reach the port's runtime).
 
@@ -66,9 +66,47 @@ _DEFS: Dict[str, Tuple[type, Any, str]] = {
     "pull_admission_concurrency": (int, 16,
                                    "concurrent cross-node chunk reads a "
                                    "raylet serves (admission control)"),
+    "broadcast_fanout": (int, 2, "relay-tree fanout for object broadcast"),
     "cluster_events_max": (int, 10_000,
                            "structured cluster events retained by the GCS "
                            "event ring (see runtime/events.py)"),
+    # -- collectives -------------------------------------------------------
+    "collective_watchdog_interval_s": (float, 1.0,
+                                       "peer-liveness/abort poll period of "
+                                       "the collective watchdog during "
+                                       "blocking ops"),
+    "collective_peer_miss_threshold": (int, 3,
+                                       "consecutive stale watchdog "
+                                       "heartbeats before a collective peer "
+                                       "is declared lost and the group "
+                                       "aborts"),
+    "collective_op_timeout_s": (float, 120.0,
+                                "per-op deadline for blocking out-of-graph "
+                                "collective ops (the torch backend's "
+                                "process-group timeout)"),
+    "collective_topology": (str, "ring",
+                            "tcp collective data plane: 'ring' (chunked "
+                            "ring algorithms over p2p links, zero-pickle "
+                            "raw frames) or 'hub' (rank-0 star, pickled "
+                            "payloads)"),
+    "collective_chunk_bytes": (int, 1 << 20,
+                               "chunk size for ring collective transfers; "
+                               "large tensors pipeline across hops in "
+                               "chunks of this size and per-op scratch "
+                               "memory stays bounded at one chunk"),
+    "ddp_bucket_bytes": (int, 4 << 20,
+                         "gradient-coalescing bucket size for "
+                         "reduce_gradients; each per-dtype bucket launches "
+                         "its allreduce as it fills so reduction overlaps "
+                         "the remaining flatten work"),
+    # -- checkpoint ----------------------------------------------------------
+    "ckpt_replicate": (bool, False,
+                       "replicate completed checkpoint shards to peer "
+                       "object stores via the broadcast fanout tree and "
+                       "register them in the GCS relocation table"),
+    "ckpt_replicate_timeout_s": (float, 60.0,
+                                 "per-shard timeout for the replication "
+                                 "fanout"),
     # -- serve -------------------------------------------------------------
     "serve_autoscale_interval_s": (float, 1.0, "controller autoscale tick"),
     "serve_handle_refresh_s": (float, 1.0,

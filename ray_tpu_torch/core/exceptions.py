@@ -2,8 +2,8 @@
 
 The port's copy of ray_tpu/core/exceptions.py (reference analog:
 python/ray/exceptions.py), without the JAX package's TPU slice failure
-domain and its collective and weight-sync errors, plus `_unported`, the
-port's refusal of a feature it has not ported yet.
+domain and its weight-sync error, plus `_unported`, the port's refusal
+of a feature it has not ported yet.
 """
 
 from __future__ import annotations
@@ -137,3 +137,19 @@ class ObjectLostError(RayTpuError):
 
 class PlacementGroupError(RayTpuError):
     pass
+
+
+class CollectiveAbortError(RayTpuError):
+    """A blocking collective op was aborted — the group's abort flag was
+    set (locally, through the GCS KV, or by the peer-liveness watchdog
+    after a rank stopped heartbeating) — instead of hanging to the socket
+    or NCCL timeout."""
+
+    def __init__(self, group_name: str, reason: str = ""):
+        self.group_name = group_name
+        self.reason = reason
+        super().__init__(
+            f"collective group {group_name!r} aborted: {reason}")
+
+    def __reduce__(self):
+        return (type(self), (self.group_name, self.reason))

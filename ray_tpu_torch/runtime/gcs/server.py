@@ -3,9 +3,9 @@
 The port's copy of ray_tpu/runtime/gcs/server.py, cut to the node table
 and heartbeats (with the versioned resource view), KV, pubsub, jobs,
 actors (create, get, kill, worker death, restart), placement groups,
-object locations, the cluster event ring, the cluster prefix table and
-shutdown. The JAX GCS's other handlers are registered as refusals
-(UNPORTED_HANDLERS).
+object locations, the checkpoint shard registry, the cluster event ring,
+the cluster prefix table and shutdown. The JAX GCS's other handlers are
+registered as refusals (UNPORTED_HANDLERS).
 
 Reference analog: src/ray/gcs/gcs_server/ (GcsServer gcs_server.h:89). One per
 cluster. Owns: internal KV (function/class table lives here —
@@ -32,11 +32,9 @@ from ray_tpu_torch.runtime import scheduling, wire
 logger = logging.getLogger(__name__)
 
 # Handlers of the JAX package's GCS not ported yet (ROADMAP.md queue 1
-# items 6.4 and 7d): checkpoint shards, metrics history, link
-# utilization, alerts, task events and the timeline, the wait graph,
-# autoscaler demand, and drain.
+# item 6.4): metrics history, link utilization, alerts, task events and
+# the timeline, the wait graph, autoscaler demand, and drain.
 UNPORTED_HANDLERS = (
-    "register_checkpoint_shards", "list_checkpoint_shards",
     "report_metrics2", "metrics_history", "metrics_history_stats",
     "link_utilization", "list_alerts", "report_task_events", "report_task_events2", "task_event_stats",
     "list_tasks", "get_task", "task_timeline", "wait_graph",
@@ -434,6 +432,59 @@ class GcsServer:
             return {"found": False}
         return {"found": True, "node_id": holder,
                 "address": list(rec.address)}
+
+    # ---- checkpoint shard registry (checkpoint/plane.py replication) -----
+    #
+    # A completed checkpoint shard that was broadcast to peer object stores
+    # registers here: the shard row records where the durable file lives,
+    # and each replica oid lands in the drain relocation table homed on a
+    # live PEER of the reporting node (the broadcast placed a copy on every
+    # node) — so when the writer's node drains and dies at its deadline,
+    # `locate_object` already points somewhere that survives it.
+
+    async def handle_register_checkpoint_shards(self, conn, path: str,
+                                                name: str, shard: int,
+                                                world: int, step=None,
+                                                nbytes: int = 0,
+                                                oids=(), node_id=None
+                                                ) -> dict:
+        shards = getattr(self, "_ckpt_shards", None)
+        if shards is None:
+            shards = self._ckpt_shards = {}
+        shards[(path, name, int(shard), int(world))] = {
+            "path": path, "name": name, "shard": int(shard),
+            "world": int(world), "step": step, "nbytes": int(nbytes),
+            "oids": [bytes(o) for o in oids],
+            "node_id": node_id, "time": time.time()}
+        table = getattr(self, "_object_relocations", None)
+        if table is None:
+            table = self._object_relocations = {}
+        peer = None
+        for nid, rec in self._nodes.items():
+            if rec.alive and not rec.draining and nid != node_id:
+                peer = nid
+                break
+        home = peer if peer is not None else node_id
+        relocated = 0
+        if home is not None:
+            for oid in oids:
+                table[bytes(oid)] = home
+                relocated += 1
+        return {"ok": True, "relocated": relocated,
+                "home": home.hex() if isinstance(home, bytes) else home}
+
+    async def handle_list_checkpoint_shards(self, conn,
+                                            path: Optional[str] = None
+                                            ) -> list:
+        shards = getattr(self, "_ckpt_shards", None) or {}
+        rows = [dict(v, oids=[o.hex() for o in v["oids"]],
+                     node_id=(v["node_id"].hex()
+                              if isinstance(v["node_id"], bytes)
+                              else v["node_id"]))
+                for v in shards.values()
+                if path is None or v["path"] == path]
+        rows.sort(key=lambda r: (r["path"], r["name"], r["shard"]))
+        return rows
 
     async def _on_disconnect(self, conn: ServerConnection):
         for subs in self._subscribers.values():

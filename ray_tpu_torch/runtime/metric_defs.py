@@ -7,14 +7,39 @@ and every process's metrics ride the snapshot path of util/metrics.py.
 The names are the JAX package's, so a rollup or a dashboard reads both
 packages' snapshots alike.
 
-The runtime's own metrics (tasks, leases, workers, the object store and
-plane, data, collectives) and the checkpoint plane's wait for the
-runtime's metrics history (ROADMAP.md queue 1 item 6.4).
+The collective plane's series are here too. The runtime's own metrics
+(tasks, leases, workers, the object store and plane, data) and the
+checkpoint plane's wait for the runtime's metrics history (ROADMAP.md
+queue 1 item 6.4).
 """
 
 from __future__ import annotations
 
 from ray_tpu_torch.util.metrics import Counter, Gauge, Histogram
+
+# -- collectives -----------------------------------------------------------
+# Per-(op, algo) traffic and latency of the out-of-program collective
+# plane. `algo` is "ring" or "hub" for the tcp backend, "nccl" or "gloo"
+# for the torch backend; components bind() a tag set once and bump the
+# bound handles, so the per-chunk accounting stays off the hot path.
+
+COLLECTIVE_OPS = Counter(
+    "ray_tpu_collective_ops_total",
+    "out-of-graph collective operations completed",
+    tag_keys=("op", "algo"))
+COLLECTIVE_BYTES_SENT = Counter(
+    "ray_tpu_collective_bytes_sent_total",
+    "bytes sent on collective data-plane links",
+    tag_keys=("op", "algo"))
+COLLECTIVE_BYTES_RECV = Counter(
+    "ray_tpu_collective_bytes_recv_total",
+    "bytes received on collective data-plane links",
+    tag_keys=("op", "algo"))
+COLLECTIVE_OP_LATENCY = Histogram(
+    "ray_tpu_collective_op_seconds",
+    "end-to-end latency of out-of-graph collective ops",
+    boundaries=[0.001, 0.01, 0.05, 0.25, 1.0, 5.0, 30.0],
+    tag_keys=("op", "algo"))
 
 # -- serve / llm -----------------------------------------------------------
 

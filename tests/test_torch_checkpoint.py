@@ -307,8 +307,8 @@ def test_disagreeing_tables_and_lost_shard_raise(cpu_jax, tmp_path):
 
 def test_legacy_layout_refused_and_replication_unported(cpu_jax, tmp_path):
     """The JAX package's retired layout (pickled treedef) needs jax: the
-    port names it and refuses; JAX reads it. Peer replication needs the
-    actor runtime: refused, never skipped."""
+    port names it and refuses; JAX reads it. (Peer replication is ported:
+    tests/test_torch_replication.py holds it against JAX.)"""
     import jax
 
     from ray_tpu.train.checkpoint import Checkpoint as JCheckpoint
@@ -324,8 +324,6 @@ def test_legacy_layout_refused_and_replication_unported(cpu_jax, tmp_path):
         ttc.Checkpoint(str(tmp_path)).load_pytree()
     with pytest.raises(tck.CheckpointNotCommitted):
         ttc.Checkpoint(str(tmp_path / "none")).load_pytree()
-    with pytest.raises(ValueError, match="queue 1 item 6.*not ported"):
-        tck.CheckpointPlane(replicate=True)
 
 
 # ---------------------------------------------------------------- plane

@@ -1039,3 +1039,135 @@ def test_handoffs_into_a_tensor_parallel_server(cuda):
     finally:
         tp.close()
         one.close()
+
+
+def _thread_ranks(classes, fn_per_rank):
+    """One thread per rank over an in-memory KV: build classes[r] as rank
+    r of a group, run fn_per_rank(comm) on every rank at once; results
+    (or the first error) in rank order, with the communicators."""
+    import threading
+
+    kv, lock = {}, threading.Lock()
+
+    def put(k, v):
+        with lock:
+            kv[k] = v
+
+    def get(k):
+        with lock:
+            return kv.get(k)
+
+    n = len(classes)
+    comms, res = [None] * n, [None] * n
+
+    def run(r):
+        try:
+            comms[r] = classes[r](r, n, f"card-{classes[r].__name__}", put,
+                                  get, timeout=60)
+            res[r] = ("ok", fn_per_rank(comms[r]))
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            res[r] = ("err", e)
+
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    for c in comms:
+        if c is not None:
+            c.close()
+    for r in res:
+        assert r is not None, "rank thread hung"
+        if r[0] == "err":
+            raise r[1]
+    return [r[1] for r in res]
+
+
+def test_torch_collective_backend_on_nccl(cuda):
+    """The torch collective backend over NCCL on 2 cards (rank r on
+    cuda:r, one thread each): every op on CUDA tensors gives the tcp
+    backend's result on the same arrays (integers equal, floats within
+    1e-6) and stays on the rank's card; with rank 0 withheld from an
+    allreduce, its abort unblocks rank 1 with CollectiveAbortError
+    within two watchdog intervals and a margin (the NCCL communicator is
+    aborted, not waited out)."""
+    import time
+
+    from ray_tpu_torch import config as tconfig
+    from ray_tpu_torch.collective.communicator import REDUCE_OPS
+    from ray_tpu_torch.collective.cpu_group import TCPCommunicator
+    from ray_tpu_torch.collective.torch_backend import TorchCommunicator
+    from ray_tpu_torch.core.exceptions import CollectiveAbortError
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 cards")
+    tconfig.reset_for_testing()
+    tconfig.cfg().apply_overrides({"collective_watchdog_interval_s": 0.25})
+    rng = np.random.default_rng(17)
+    data = {dt: [{"a": (rng.integers(-3, 4, 1003) if dt == "int64" else
+                        rng.standard_normal(1003)).astype(dt),
+                  "s": [rng.standard_normal(257).astype(dt)
+                        for _ in range(2)]} for _ in range(2)]
+            for dt in ("float32", "float64", "int64")}
+
+    def script(c, on_card):
+        dev = torch.device("cuda", c.rank)
+        T = (lambda x: torch.from_numpy(x).to(dev)) if on_card \
+            else (lambda x: x)
+        out = []
+        for cases in data.values():
+            d = cases[c.rank]
+            for op in REDUCE_OPS:
+                out += [c.allreduce(T(d["a"]), op),
+                        c.reducescatter([T(s) for s in d["s"]], op)]
+        d = data["float32"][c.rank]
+        out += [c.allgather(T(d["a"])),
+                c.broadcast(T(d["a"]) if (c.rank == 1 or on_card) else None,
+                            1),
+                c.alltoall([T(s) for s in d["s"]])]
+        if c.rank == 0:
+            c.send(T(d["a"]), 1)
+        else:
+            out.append(c.recv((1003,), torch.float32 if on_card
+                              else np.float32, 0, **(
+                                  {"device": dev} if on_card else {})))
+        c.barrier()
+        return out
+
+    def flat(x):
+        return [y for v in x for y in flat(v)] if isinstance(x, list) \
+            else [x]
+
+    try:
+        got = _thread_ranks([TorchCommunicator] * 2,
+                            lambda c: script(c, True))
+        want = _thread_ranks([TCPCommunicator] * 2,
+                             lambda c: script(c, False))
+        for r in range(2):
+            for g, w in zip(flat(got[r]), flat(want[r])):
+                assert g.device == torch.device("cuda", r)
+                g = g.cpu().numpy()
+                assert g.dtype == w.dtype and g.shape == w.shape
+                if w.dtype.kind == "i":
+                    np.testing.assert_array_equal(g, w)
+                else:
+                    np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-6)
+
+        def withheld(c):
+            dev = torch.device("cuda", c.rank)
+            c.allreduce(torch.ones(4, device=dev))   # the communicator up
+            if c.rank == 0:
+                time.sleep(1.0)
+                t0 = time.monotonic()
+                c.abort("rank 0 withheld")
+                return t0
+            try:
+                c.allreduce(torch.ones(1 << 20, device=dev))
+            except CollectiveAbortError:
+                return time.monotonic()
+            raise AssertionError("allreduce returned with a rank withheld")
+
+        t_abort, t_raised = _thread_ranks([TorchCommunicator] * 2, withheld)
+        assert t_raised - t_abort < 2 * 0.25 + 1.0, t_raised - t_abort
+    finally:
+        tconfig.reset_for_testing()

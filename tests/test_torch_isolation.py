@@ -133,6 +133,29 @@ def test_observability_modules_import_neither_torch_jax_nor_ray_tpu():
     assert res.returncode == 0, res.stderr
 
 
+def test_collective_modules_import_neither_torch_jax_nor_ray_tpu():
+    """The collective API, its tcp backend, the object broadcast and the
+    multi-node test cluster load no torch: a CPU worker's tcp group and a
+    replicated save's broadcast never pay for `import torch` (the torch
+    backend imports it when a group asks for it)."""
+    names = ["ray_tpu_torch.collective", "ray_tpu_torch.collective.collective",
+             "ray_tpu_torch.collective.communicator",
+             "ray_tpu_torch.collective.cpu_group",
+             "ray_tpu_torch.util.broadcast", "ray_tpu_torch.cluster_utils"]
+    assert set(names) <= {name for name, _ in _modules()}
+    code = (
+        "import importlib, sys\n"
+        f"for n in {names!r}: importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'jaxlib', 'ray_tpu'))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
 def test_runtime_sources_name_no_jax_runtime_variable_or_path():
     """The port's runtime names its own environment variables
     (RAY_TPU_TORCH_*) and its own base directory, so it never reads or

@@ -143,7 +143,7 @@ def test_metric_definitions_equal_jax():
     from ray_tpu.runtime import metric_defs as jmd
 
     jax_by_name = {m.info["name"]: m for m in jmd.ALL_METRICS}
-    assert len(tmd.ALL_METRICS) == 25
+    assert len(tmd.ALL_METRICS) == 29
     for m in tmd.ALL_METRICS:
         j = jax_by_name[m.info["name"]]
         assert type(m).__name__ == type(j).__name__

@@ -12,27 +12,7 @@ import os
 import signal
 
 import ray_tpu_torch as rt
-
-
-def session_pids(session_dir: str):
-    """Processes of one port session: the GCS and raylet name the session
-    directory on their command line, workers in their environment."""
-    key = session_dir.encode()
-    env_key = b"RAY_TPU_TORCH_SESSION_DIR=" + key
-    pids = []
-    for entry in os.listdir("/proc"):
-        if not entry.isdigit() or int(entry) == os.getpid():
-            continue
-        try:
-            with open(f"/proc/{entry}/cmdline", "rb") as f:
-                cmd = f.read()
-            with open(f"/proc/{entry}/environ", "rb") as f:
-                env = f.read()
-        except OSError:
-            continue
-        if b"ray_tpu_torch" in cmd and (key in cmd or env_key in env):
-            pids.append(int(entry))
-    return pids
+from ray_tpu_torch.cluster_utils import session_pids
 
 
 @contextlib.contextmanager
